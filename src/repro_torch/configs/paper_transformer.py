@@ -1,0 +1,35 @@
+"""The dense entries of the ``paper_transformer`` zoo (copied from
+``repro.configs.paper_transformer``): ``tiny`` is the CPU test tier, ``base``
+the single-card tier the port trains on the H100."""
+from repro_torch.configs.base import ModelConfig
+
+PAPER_TRANSFORMER_TINY = ModelConfig(
+    name="paper-transformer-tiny", family="dense",
+    num_layers=2, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
+    d_ff=128, vocab_size=256, tie_embeddings=True,
+    source="arXiv:1603.05544 §5 workloads, transformer counterpart (CI tier)",
+)
+
+PAPER_TRANSFORMER = ModelConfig(
+    name="paper-transformer", family="dense",
+    num_layers=16, d_model=1024, num_heads=16, num_kv_heads=8, head_dim=64,
+    d_ff=4096, vocab_size=32768, rope_theta=1e5,
+    source="arXiv:1603.05544 §5 workloads, transformer counterpart "
+           "(single-host tier, ~0.4B params)",
+)
+
+ZOO = {
+    ("transformer", "tiny"): PAPER_TRANSFORMER_TINY,
+    ("transformer", "base"): PAPER_TRANSFORMER,
+}
+
+ZOO_MODELS = ("transformer",)
+ZOO_TIERS = ("tiny", "base")
+
+
+def zoo_config(model: str, tier: str = "tiny") -> ModelConfig:
+    try:
+        return ZOO[(model, tier)]
+    except KeyError:
+        raise ValueError(f"unknown zoo config ({model!r}, {tier!r}); "
+                         f"models={ZOO_MODELS} tiers={ZOO_TIERS}") from None

@@ -1,0 +1,85 @@
+"""Move dense-transformer weights between the JAX tree and the port.
+
+The JAX tree (``repro.models.transformer.init_params``, as numpy arrays) is
+``{"embed", "final_norm", "head"?, "prefix": [], "blocks": (block,)}`` with
+``block = {ln1, ln2, mixer: {wq, wk, wv, wo}, mlp: {wg, wi, wo}}`` and each
+block leaf stacked over ``n_blocks`` on axis 0: layer ``b·P + p`` is
+``blocks[p][...][b]``. Both sides use the ``x @ W`` layout, so every leaf is
+copied as it is. bf16 leaves travel as their raw 16-bit patterns.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models.transformer import stack_plan
+
+_TOP = ("embed", "final_norm", "head")
+_MIXER = ("wq", "wk", "wv", "wo")
+_MLP = ("wg", "wi", "wo")
+
+
+def _layer_keys():
+    yield ("ln1",), "ln1"
+    yield ("ln2",), "ln2"
+    for n in _MIXER:
+        yield ("mixer", n), f"mixer.{n}"
+    for n in _MLP:
+        yield ("mlp", n), f"mlp.{n}"
+
+
+def _to_torch(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes   # numpy's bfloat16 dtype; needed only for bf16 leaves
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16).copy()
+    return t.numpy().copy()
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def params_from_jax(tree, cfg) -> dict:
+    """JAX param tree (numpy leaves) -> the port's ``state_dict``."""
+    prefix, block, n_blocks = stack_plan(cfg)
+    if len(tree.get("prefix", [])) != len(prefix):
+        raise ValueError("prefix layers do not match the config")
+    P = len(block)
+    sd = {k: _to_torch(tree[k]) for k in _TOP if k in tree}
+    for p in range(P):
+        for path, name in _layer_keys():
+            leaf = np.asarray(_get(tree["blocks"][p], path))
+            for b in range(n_blocks):
+                sd[f"layers.{b * P + p}.{name}"] = _to_torch(leaf[b])
+    return sd
+
+
+def params_to_jax(state_dict, cfg) -> dict:
+    """The port's ``state_dict`` -> JAX param tree with numpy leaves."""
+    _, block, n_blocks = stack_plan(cfg)
+    P = len(block)
+    tree = {k: _to_numpy(state_dict[k]) for k in _TOP if k in state_dict}
+    tree["prefix"] = []
+    blocks = []
+    for p in range(P):
+        bp = {"mixer": {}, "mlp": {}}
+        for path, name in _layer_keys():
+            leaf = np.stack([_to_numpy(state_dict[f"layers.{b * P + p}.{name}"])
+                             for b in range(n_blocks)])
+            if len(path) == 1:
+                bp[path[0]] = leaf
+            else:
+                bp[path[0]][path[1]] = leaf
+        blocks.append(bp)
+    tree["blocks"] = tuple(blocks)
+    return tree

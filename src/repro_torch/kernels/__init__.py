@@ -1,0 +1,7 @@
+"""Hand-written CUDA kernels for Hopper and their plain PyTorch versions.
+
+Each wrapper computes its plain version for a tensor on the CPU and, for a
+CUDA tensor, launches its kernel (built from ``csrc/`` by ``build.py``) or
+raises. ``<wrapper>.launches`` counts kernel launches and nothing else.
+"""
+KERNEL_CHOICES = ("cuda", "reference")

@@ -1,0 +1,43 @@
+"""Kernel-vs-plain tolerances and shape grids, the port's own copy of
+``repro.kernels.numerics`` (a test holds the two tables equal).
+
+kernel -> dtype name -> (rtol, atol). bf16 tolerances cover input rounding
+(eps 2^-8) plus accumulation-order differences; f32 tolerances are a few
+ulps of the reduction reassociation.
+"""
+from __future__ import annotations
+
+TOLERANCES = {
+    "fused_xent": {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)},
+    "flash_attention": {"float32": (2e-5, 2e-5), "bfloat16": (3e-2, 3e-2)},
+    "ssd_scan": {"float32": (1e-3, 1e-3), "bfloat16": (3e-2, 3e-2)},
+}
+
+# fused_xent: (N, d, Vp, V)
+XENT_SHAPES = [
+    (128, 64, 512, 500),      # padded vocab, aligned tokens
+    (256, 32, 1024, 1024),    # exact vocab
+    (384, 32, 256, 256),      # N=B·S not a multiple of the 256 token tile
+    (96, 48, 1024, 1000),     # ragged token axis
+    (128, 64, 256, 256),      # paper-transformer-tiny head (d=64, V=256)
+]
+
+# flash_attention: (BH, S, hd, causal, window)
+ATTN_SHAPES = [
+    (4, 256, 64, True, None),
+    (2, 256, 64, True, 64),     # sliding window
+    (8, 64, 16, True, None),    # paper-transformer-tiny (B·H=8, S=64, hd=16)
+    (2, 192, 32, True, 64),     # seq not 128-aligned
+    (1, 128, 32, False, None),  # non-causal (encoder/cross)
+]
+
+
+def gqa_split(bh: int):
+    """(B, H, K) for a flattened B·H of ``ATTN_SHAPES``: four query heads
+    over two KV heads where B·H allows it, so every grid cell exercises the
+    GQA head mapping (B·H=8 gives the tiny tier's B=2, H=4, K=2)."""
+    if bh % 4 == 0:
+        return bh // 4, 4, 2
+    if bh % 2 == 0:
+        return bh // 2, 2, 1
+    return bh, 1, 1

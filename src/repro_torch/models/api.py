@@ -1,0 +1,59 @@
+"""Model API: ``build_model(cfg, ...)`` -> ``Model``, the surface the trainer
+and the launcher use. Port of the training half of ``repro.models.api``.
+
+``kernels`` picks the attention and loss implementations at build time:
+
+  * ``"cuda"``: ``gqa_flash`` and ``fused_xent_sum``, whose wrappers launch
+    the hand-written CUDA kernels on a CUDA device, and compute their plain
+    PyTorch versions on a CPU device (the CPU tests run this way);
+  * ``"reference"``: the model's own plain paths, ``_attend_chunked`` and
+    ``chunked_xent``, as the JAX package's ``"reference"``.
+
+Nothing is resolved behind the caller's back: the requested mode is the
+mode that runs.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.kernels import KERNEL_CHOICES
+from repro_torch.models import transformer as T
+
+
+@dataclass
+class Model:
+    cfg: ModelConfig
+    module: T.Transformer
+    kernels: str
+    init: Callable               # (seed) -> module, filled in place
+    loss_fn: Callable            # (batch) -> (total_loss, data_loss)
+
+    def params(self) -> list:
+        return list(self.module.parameters())
+
+
+def build_model(cfg: ModelConfig, *, kernels: str = "cuda",
+                param_dtype=torch.bfloat16, remat: bool = True,
+                device="cuda") -> Model:
+    """``param_dtype`` is the compute dtype of weights and activations
+    (bf16 by default); norm scales, ψ and the SPC queue stay f32."""
+    if kernels not in KERNEL_CHOICES:
+        raise ValueError(f"kernels must be one of {KERNEL_CHOICES}, "
+                         f"got {kernels!r}")
+    dev = resolve_device(device)
+    module = T.Transformer(cfg, dtype=param_dtype, device=dev)
+    use_kernels = kernels == "cuda"
+
+    def init(seed: int = 0):
+        return T.init_params(module, seed)
+
+    def loss_fn(batch):
+        return T.lm_loss_fn(module, batch, remat=remat,
+                            use_kernels=use_kernels)
+
+    return Model(cfg, module, kernels, init, loss_fn)

@@ -1,0 +1,145 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+Every test here needs an NVIDIA GPU (``cuda`` marker) and skips without
+one. The file imports neither jax nor the JAX package, and runs on a
+machine that has neither:
+
+    PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerances are ``TOLERANCES[kernel][dtype]``; f32 products are kept out
+of TF32.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import zoo_config
+from repro_torch.kernels.flash_attention import (attention_plain,
+                                                 flash_attention, gqa_flash)
+from repro_torch.kernels.fused_xent import (fused_xent, fused_xent_sum,
+                                            xent_plain)
+from repro_torch.kernels.numerics import (ATTN_SHAPES, TOLERANCES,
+                                          XENT_SHAPES, gqa_split)
+from repro_torch.models import build_model
+
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _tol(kernel, dtype):
+    return TOLERANCES[kernel][str(dtype).split(".")[1]]
+
+
+def _close(out, ref, tol):
+    rtol, atol = tol
+    torch.testing.assert_close(out.float().cpu(), ref.float().cpu(),
+                               rtol=rtol, atol=atol)
+
+
+def _xent_inputs(N, d, Vp, V, dtype, seed=0):
+    rng = np.random.RandomState(seed)
+    h = torch.from_numpy(rng.randn(N, d).astype(np.float32))
+    w = torch.from_numpy((rng.randn(d, Vp) * 0.05).astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, V, size=N).astype(np.int32))
+    return h.cuda().to(dtype), w.cuda().to(dtype), y.cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", XENT_SHAPES, ids=str)
+def test_xent_kernel_matches_plain(cuda, shape, dtype):
+    N, d, Vp, V = shape
+    h, w, y = _xent_inputs(*shape, dtype)
+    n0 = fused_xent.launches
+    out = fused_xent(h, w, y, V)
+    torch.cuda.synchronize()
+    assert fused_xent.launches == n0 + 1
+    assert out.dtype == torch.float32 and out.shape == (N,)
+    _close(out, xent_plain(h, w, y, V), _tol("fused_xent", dtype))
+    wt = w.T.contiguous().T                      # a tied head: embed.T
+    _close(fused_xent(h, wt, y, V), xent_plain(h, wt, y, V),
+           _tol("fused_xent", dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", ATTN_SHAPES + [(4, 256, 128, True, None)],
+                         ids=str)
+def test_attention_kernel_matches_plain(cuda, shape, dtype):
+    BH, S, hd, causal, window = shape
+    B, H, K = gqa_split(BH)
+    rng = np.random.RandomState(0)
+    q, k, v = (torch.from_numpy(rng.randn(B, S, n, hd).astype(np.float32))
+               .cuda().to(dtype) for n in (H, K, K))
+    n0 = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    _close(out, attention_plain(q, k, v, causal=causal, window=window),
+           _tol("flash_attention", dtype))
+
+
+@pytest.mark.cuda
+def test_gradients_match_plain(cuda):
+    """The autograd wrappers' backwards (torch, as in the JAX package)
+    against autograd through the plain versions, in f32."""
+    rng = np.random.RandomState(1)
+    h = torch.from_numpy(rng.randn(2, 96, 64).astype(np.float32)).cuda()
+    w = torch.from_numpy((rng.randn(64, 512) * 0.05).astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.randint(0, 500, size=(2, 96)).astype(np.int32)).cuda()
+    mask = torch.ones(2, 96, device="cuda")
+    ins = [h.clone().requires_grad_(True), w.clone().requires_grad_(True)]
+    tot, _ = fused_xent_sum(ins[0], ins[1], y, mask, 500)
+    got = torch.autograd.grad(tot, ins)
+    ref_ins = [h.clone().requires_grad_(True), w.clone().requires_grad_(True)]
+    ref = xent_plain(ref_ins[0].reshape(-1, 64), ref_ins[1], y.reshape(-1), 500).sum()
+    want = torch.autograd.grad(ref, ref_ins)
+    for a, b in zip(got, want):
+        _close(a, b, (1e-4, 1e-4 * float(b.abs().max())))
+    q, k, v = (torch.from_numpy(rng.randn(2, 128, n, 32).astype(np.float32))
+               .cuda().requires_grad_(True) for n in (4, 2, 2))
+    r = torch.from_numpy(rng.randn(2, 128, 4, 32).astype(np.float32)).cuda()
+    got = torch.autograd.grad((gqa_flash(q, k, v, window=48) * r).sum(), (q, k, v))
+    want = torch.autograd.grad((attention_plain(q, k, v, window=48) * r).sum(),
+                               (q, k, v))
+    for a, b in zip(got, want):
+        _close(a, b, _tol("flash_attention", torch.float32))
+
+
+@pytest.mark.cuda
+def test_bf16_kernels_refuse_unstaged_layouts(cuda):
+    h, w, y = _xent_inputs(64, 32, 256, 256, torch.bfloat16)
+    with pytest.raises(ValueError):
+        fused_xent(h.T.contiguous().T, w, y, 256)
+    q = torch.zeros(2, 64, 4, 16, dtype=torch.bfloat16, device="cuda")
+    kv = torch.zeros(2, 64, 2, 20, dtype=torch.bfloat16, device="cuda")[..., :16]
+    with pytest.raises(ValueError):
+        flash_attention(q, kv, kv)
+
+
+@pytest.mark.cuda
+def test_tiny_model_kernels_match_reference(cuda):
+    """The tiny tier's loss and gradients through the kernels and through
+    the model's plain paths, from one init, in f32."""
+    cfg = zoo_config("transformer", "tiny")
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, size=(2, 64)).astype(np.int32)).cuda()
+    out = {}
+    for kernels in ("cuda", "reference"):
+        m = build_model(cfg, kernels=kernels, param_dtype=torch.float32)
+        m.init(0)
+        loss, _ = m.loss_fn({"tokens": tokens})
+        out[kernels] = (loss, torch.autograd.grad(loss, m.params()))
+    torch.testing.assert_close(out["cuda"][0], out["reference"][0],
+                               rtol=1e-5, atol=0)
+    for a, b in zip(out["cuda"][1], out["reference"][1]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * float(b.abs().max()))
