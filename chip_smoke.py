@@ -5,11 +5,14 @@
 
 from the root of the repository. It builds the port's CUDA kernels from
 ``src/repro_torch/kernels/csrc``, holds each kernel against its plain
-PyTorch version on the card, trains ``paper-transformer`` (base tier, full
-width) for 12 ISGD steps through the launcher with ``--kernels cuda``, and
-checks that the training path really launched the kernels. Each phase
-prints one JSON line; the last two lines are the kernels summary and
-``{"ok": true, "device": {...}}``.
+PyTorch version on the card, and drives the port's two training paths
+through the launcher with ``--kernels cuda``: ``paper-transformer`` (base
+tier, 16 layers) and ``paper-ssm`` (base tier, 24 Mamba2/SSD layers), both
+at full width for 12 ISGD steps. For each path it checks that the run
+really launched that path's kernels, compares step 1's loss with the
+model's plain paths, and profiles three steps. Each phase prints one JSON
+line; the last two lines are the kernels summary and ``{"ok": true,
+"device": {...}}``.
 
 Nothing is caught: any failure exits nonzero before the last line. Without
 a CUDA device, or outside a checkout of the repository, it exits nonzero
@@ -37,13 +40,22 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,      # dense tensor-core bf16
               torch.float32: 67e12}        # f32 outside the tensor cores
 DTYPE_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 
-# the training run below: --batch 8 --seq 1024 on the base tier
-TRAIN_ARGS = ["--model", "transformer", "--tier", "base", "--kernels", "cuda",
-              "--precision", "bf16", "--batch", "8", "--seq", "1024",
-              "--n-seqs", "32", "--steps", "12", "--k-sigma", "1.0",
-              "--stop", "3", "--device", "cuda"]
+MODELS = ("transformer", "ssm")            # the training paths, in order
+SUFFIX = {"transformer": "", "ssm": "_ssm"}  # of each path's phase names
 XENT_MAIN = (8192, 1024, 32768, 32768)     # N = B·S, d, Vp, vocab
 ATTN_MAIN = (8, 1024, 16, 8, 64)           # B, S, H, K, hd (causal)
+SSD_MAIN = (8, 1024, 32, 64, 1, 128, 256)  # b, S, nh, hd, G, ds, chunk
+SSD_MAMBA2 = (1, 2048, 80, 64, 1, 128, 256)  # Mamba2-2.7B's mixer
+DT_INIT = math.log(math.expm1(0.01))       # dt_bias at init: dt ≈ 0.01–0.02
+PARITY_TIGHT = 1e-3                        # step-1 loss, relative
+
+
+def train_args(model: str, steps: int = 12) -> list:
+    """The training run: --batch 8 --seq 1024 on the base tier."""
+    return ["--model", model, "--tier", "base", "--kernels", "cuda",
+            "--precision", "bf16", "--batch", "8", "--seq", "1024",
+            "--n-seqs", "32", "--steps", str(steps), "--k-sigma", "1.0",
+            "--stop", "3", "--device", "cuda"]
 
 
 def emit(phase: str, **fields):
@@ -104,6 +116,25 @@ def attn_inputs(B, S, H, K, hd, dtype, seed=0):
     rng = np.random.RandomState(seed)
     return [torch.from_numpy(rng.randn(B, S, n, hd).astype(np.float32))
             .cuda().to(dtype) for n in (H, K, K)]
+
+
+def ssd_inputs(b, S, nh, hd, G, ds, dtype, seed=0, dt_shift=0.0):
+    """x, B and C as views of one (b, S, nh·hd + 2·G·ds) tensor, the
+    model's layout after the convolution; dt = softplus(N(dt_shift, 1)) and
+    A = −exp(0.3·N(0,1)) in f32, as the kernel-numerics grid draws them.
+    At dt_shift = DT_INIT dt is the model's at init, small enough that every
+    64-position tile of a 256-long chunk, and the chunk's decay, weigh above
+    the tolerance; at dt_shift = 0 (mean 0.8) only the last tile does."""
+    rng = np.random.RandomState(seed)
+    di = nh * hd
+    xBC = torch.from_numpy(rng.randn(b, S, di + 2 * G * ds)
+                           .astype(np.float32)).cuda().to(dtype)
+    dt = np.log1p(np.exp(rng.randn(b, S, nh) + dt_shift)).astype(np.float32)
+    A = (-np.exp(rng.randn(nh) * 0.3)).astype(np.float32)
+    return (xBC[..., :di].reshape(b, S, nh, hd), torch.from_numpy(dt).cuda(),
+            torch.from_numpy(A).cuda(),
+            xBC[..., di:di + G * ds].reshape(b, S, G, ds),
+            xBC[..., di + G * ds:].reshape(b, S, G, ds))
 
 
 def live_pairs(S: int, causal: bool, window) -> int:
@@ -206,11 +237,61 @@ def check_attn(shape, dtype, causal=True, window=None, timed=False) -> dict:
     return res
 
 
+def check_ssd(shape, dtype, timed=False, dt_shift=0.0) -> dict:
+    """The kernel's three outputs against its plain version on the chunked
+    views, then the whole ``ssd_chunked_kernel`` (y, final state) against
+    the plain ``ssd_chunked``."""
+    from repro_torch.kernels.numerics import TOLERANCES
+    from repro_torch.kernels.ssd_scan import (chunk_len, ssd_chunked_kernel,
+                                              ssd_intra_chunk,
+                                              ssd_intra_chunk_plain)
+    from repro_torch.models.ssm import ssd_chunked
+    b, S, nh, hd, G, ds, chunk = shape
+    x, dt, A, B, C = ssd_inputs(b, S, nh, hd, G, ds, dtype, dt_shift=dt_shift)
+    cl = chunk_len(S, chunk)
+    N = b * S // cl
+    ins = (x.reshape(N, cl, nh, hd), dt.reshape(N, cl, nh), A,
+           B.reshape(N, cl, G, ds), C.reshape(N, cl, G, ds))
+    tol = TOLERANCES["ssd_scan"][DTYPE_NAME[dtype]]
+    outs = ssd_intra_chunk(*ins)
+    torch.cuda.synchronize()
+    parts = [compare(o, r, tol) for o, r in zip(outs, ssd_intra_chunk_plain(*ins))]
+    parts += [compare(o, r, tol) for o, r in zip(
+        ssd_chunked_kernel(x, dt, A, B, C, chunk=chunk),
+        ssd_chunked(x, dt, A, B, C, chunk=chunk))]
+    res = {"kernel": "ssd_scan", "shape": list(shape), "chunk_len": cl,
+           "dt_shift": dt_shift, "dtype": DTYPE_NAME[dtype],  # the kernel's outputs:
+           "max_abs": max(p["max_abs"] for p in parts[:3]),
+           "max_rel": max(p["max_rel"] for p in parts[:3]),
+           "max_abs_by_output": dict(zip(
+               ("y_diag", "states", "decays", "y", "final_state"),
+               (p["max_abs"] for p in parts))),
+           "rtol": tol[0], "atol": tol[1], "ok": all(p["ok"] for p in parts)}
+    if timed:
+        esz = x.element_size()
+        # live (i >= j) pairs of 2(ds + hd) operations, then 2·cl·hd·ds for
+        # the state, per (chunk, head)
+        ops = N * nh * (cl * (cl + 1) / 2 * 2 * (ds + hd) + 2 * cl * hd * ds)
+        nbytes = ((N * cl * nh * hd + 2 * N * cl * G * ds) * esz      # x, B, C
+                  + (N * cl * nh + nh) * 4                              # dt, A
+                  + (N * cl * nh * hd + N * nh * hd * ds + N * nh) * 4)  # outputs
+        res["bound_ms"], res["bound_by"] = bound_ms(ops, nbytes, dtype)
+        res["kernel_ms"] = cuda_ms(lambda: ssd_intra_chunk(*ins))
+        res["plain_ms"] = cuda_ms(lambda: ssd_intra_chunk_plain(*ins))
+        res["library_ms"] = None      # no single PyTorch call computes it
+        res["achieved_tflops"] = ops / res["kernel_ms"] / 1e9
+    emit("check", **res)
+    if not res["ok"]:
+        raise SystemExit(f"ssd_scan disagrees with its plain version: {res}")
+    return res
+
+
 def phase_checks() -> dict:
-    """Every kernel vs its plain version, f32 and bf16: the main path's
+    """Every kernel vs its plain version, f32 and bf16: the main paths'
     shapes (timed), the ragged grid cells of the CPU tests and the tiny
-    tier. -> {kernel: the timed bf16 main-shape result}."""
-    from repro_torch.kernels.numerics import ATTN_SHAPES, XENT_SHAPES, gqa_split
+    tiers. -> {kernel: the timed bf16 main-shape result}."""
+    from repro_torch.kernels.numerics import (ATTN_SHAPES, SSD_SHAPES,
+                                              XENT_SHAPES, gqa_split)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     main = {}
@@ -225,29 +306,41 @@ def phase_checks() -> dict:
             check_attn((B, S, H, K, hd), dtype, causal=causal, window=window)
         check_attn((2, 256, 8, 2, 128), dtype)                # hd = 128
         check_attn((8, 128, 4, 2, 16), dtype)                 # tiny tier
+        main["ssd_scan"] = check_ssd(SSD_MAIN, dtype, timed=True,
+                                     dt_shift=DT_INIT)
+        for shape in SSD_SHAPES:
+            check_ssd(shape, dtype)
+        check_ssd((1, 100, 2, 16, 1, 8, 32), dtype)           # cl = 25
+        check_ssd((2, 128, 4, 32, 2, 16, 64), dtype)          # two groups
+        check_ssd(SSD_MAMBA2, dtype, dt_shift=DT_INIT)
     return main                    # the bf16 entries: the training dtype
 
 
-def phase_train() -> dict:
+def phase_train(model: str) -> dict:
     from repro_torch.configs import zoo_config
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.fused_xent import fused_xent
+    from repro_torch.kernels.ssd_scan import ssd_intra_chunk
     from repro_torch.launch import train as launcher
-    fused_xent.launches = 0
-    flash_attention.launches = 0
-    res = launcher.main(TRAIN_ARGS)
-    launches = {"fused_xent": fused_xent.launches,
-                "flash_attention": flash_attention.launches}
+    wrappers = {"fused_xent": fused_xent, "flash_attention": flash_attention,
+                "ssd_scan": ssd_intra_chunk}
+    for w in wrappers.values():
+        w.launches = 0
+    res = launcher.main(train_args(model))
+    launches = {k: w.launches for k, w in wrappers.items()}
     log, state = res["log"], res["state"]
     steps = res["steps"]
-    cfg = zoo_config("transformer", "base")
+    cfg = zoo_config(model, "base")
     # one loss-and-gradient per step plus one per Alg.2 trip; ψ launches
-    # fused_xent once per evaluation, and under remat every layer's
-    # attention runs twice (forward and the backward's recomputation)
+    # fused_xent once per evaluation, and under remat every layer's mixer
+    # kernel runs twice (forward and the backward's recomputation)
     evals = steps + state.sub_iters
-    expect = {"fused_xent": evals, "flash_attention": 2 * cfg.num_layers * evals}
-    emit("train", config=cfg.name, params=res["params"], steps=steps,
-         losses=log.losses, accelerated=state.accel_count,
+    mixer = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
+    expect = {k: 0 for k in wrappers}
+    expect["fused_xent"] = evals
+    expect[mixer] = 2 * cfg.num_layers * evals
+    emit("train" + SUFFIX[model], config=cfg.name, params=res["params"],
+         steps=steps, losses=log.losses, accelerated=state.accel_count,
          sub_iters=state.sub_iters, ms_per_step=res["seconds"] / steps * 1e3,
          ms_per_step_after_first=(log.wall[-1] - log.wall[0]) / (steps - 1) * 1e3,
          seconds=res["seconds"], peak_mem_gib=res["peak_bytes"] / 2**30,
@@ -262,51 +355,64 @@ def phase_train() -> dict:
     return {"launches": launches, "step1_loss": log.losses[0]}
 
 
-def phase_parity(train_step1: float):
+def phase_parity(model: str, train_step1: float):
     """Step 1's loss through the kernels and through the model's plain
-    paths, from the same init on the same batch."""
+    paths, from the same init on the same batch: within the bf16 tolerance
+    of ``fused_xent`` and within PARITY_TIGHT. At init the loss sits near
+    ln V whatever the mixers return, so for the SSM path the first layer's
+    mixer output is also held, kernel against plain, at the main shape."""
     from repro_torch.configs import zoo_config
     from repro_torch.data import FCPRSampler, make_lm_tokens
     from repro_torch.kernels.numerics import TOLERANCES
     from repro_torch.models import build_model
-    cfg = zoo_config("transformer", "base")
+    from repro_torch.models.ssm import ssm_forward
+    cfg = zoo_config(model, "base")
     data = make_lm_tokens(0, 32, 1024, cfg.vocab_size)
     batch = {"tokens": torch.from_numpy(
         FCPRSampler(data, batch_size=8, seed=1)(0)["tokens"]).cuda()}
     loss = {}
+    mixer = None
     for kernels in ("cuda", "reference"):
-        model = build_model(cfg, kernels=kernels, param_dtype=torch.bfloat16,
-                            device="cuda")
-        model.init(0)
+        m = build_model(cfg, kernels=kernels, param_dtype=torch.bfloat16,
+                        device="cuda")
+        m.init(0)
         with torch.no_grad():
-            loss[kernels] = float(model.loss_fn(batch)[0])
-        del model
+            loss[kernels] = float(m.loss_fn(batch)[0])
+            if cfg.family == "ssm" and kernels == "cuda":
+                h = torch.from_numpy(np.random.RandomState(2).randn(
+                    8, 1024, cfg.d_model).astype(np.float32)).cuda().to(torch.bfloat16)
+                p = m.module.layers[0].mixer
+                mixer = compare(ssm_forward(p, cfg, h, use_kernel=True),
+                                ssm_forward(p, cfg, h, use_kernel=False),
+                                TOLERANCES["ssd_scan"]["bfloat16"])
+        del m
     rtol = TOLERANCES["fused_xent"]["bfloat16"][0]
     rel = abs(loss["cuda"] - loss["reference"]) / abs(loss["reference"])
     rel_train = abs(train_step1 - loss["cuda"]) / abs(loss["cuda"])
-    emit("parity", loss_cuda=loss["cuda"], loss_reference=loss["reference"],
-         rel=rel, train_step1=train_step1, rel_train=rel_train, rtol=rtol)
-    if not (rel <= rtol and rel_train <= rtol):
+    emit("parity" + SUFFIX[model], loss_cuda=loss["cuda"], loss_reference=loss["reference"],
+         rel=rel, train_step1=train_step1, rel_train=rel_train, rtol=rtol,
+         rtol_tight=PARITY_TIGHT, mixer_layer0=mixer)
+    if not (rel <= min(rtol, PARITY_TIGHT) and rel_train <= min(rtol, PARITY_TIGHT)):
         raise SystemExit("step-1 loss: kernels and plain paths disagree")
+    if mixer is not None and not mixer["ok"]:
+        raise SystemExit(f"layer 0's SSM mixer: kernel and plain disagree: {mixer}")
 
 
-def phase_profile():
-    """Device time by kernel over three training steps of the main path
-    (a fresh launcher run), from torch.profiler's CUDA events; the busy
-    share is that time over the launcher's own step clock."""
+def phase_profile(model: str):
+    """Device time by kernel over three training steps of a path (a fresh
+    launcher run), from torch.profiler's CUDA events; the busy share is
+    that time over the launcher's own step clock."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import train as launcher
-    args = TRAIN_ARGS[:]
-    args[args.index("--steps") + 1] = "3"
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        res = launcher.main(args)
+        res = launcher.main(train_args(model, steps=3))
     rows = sorted(((e.self_device_time_total, e.key, e.count)
                    for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA),
                   reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
-    emit("profile", steps=3, step_window_s=res["seconds"], device_busy_s=busy,
+    emit("profile" + SUFFIX[model], steps=3, step_window_s=res["seconds"], device_busy_s=busy,
          busy_share=busy / res["seconds"],
          top=[{"name": k[:90], "ms_per_step": t / 1e3 / 3, "calls": c,
                "share": t / 1e6 / busy} for t, k, c in rows[:15]])
@@ -319,19 +425,23 @@ def main():
     smi = phase_device()
     phase_build()
     main_checks = phase_checks()
-    train = phase_train()
-    phase_parity(train["step1_loss"])
-    phase_profile()
+    train = {}
+    for model in MODELS:
+        train[model] = phase_train(model)
+        phase_parity(model, train[model]["step1_loss"])
+        phase_profile(model)
     kernels = []
-    for name, source, replaces in (
-            ("fused_xent", "src/repro_torch/kernels/csrc/fused_xent.cu",
+    for name, path, replaces in (
+            ("fused_xent", "transformer",
              "src/repro/kernels/fused_xent/kernel.py:26"),
-            ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention/kernel.py:24")):
+            ("flash_attention", "transformer",
+             "src/repro/kernels/flash_attention/kernel.py:24"),
+            ("ssd_scan", "ssm", "src/repro/kernels/ssd_scan/kernel.py:23")):
         r = main_checks[name]
-        kernels.append({"name": name, "route": "cuda", "source": source,
+        kernels.append({"name": name, "route": "cuda", "path": path,
+                        "source": f"src/repro_torch/kernels/csrc/{name}.cu",
                         "replaces": replaces,
-                        "launches": train["launches"][name],
+                        "launches": train[path]["launches"][name],
                         "max_abs_err": r["max_abs"], "ms": r["kernel_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],

@@ -1,4 +1,4 @@
-"""The dense entries of the ``paper_transformer`` zoo (copied from
+"""The dense and ssm entries of the ``paper_transformer`` zoo (copied from
 ``repro.configs.paper_transformer``): ``tiny`` is the CPU test tier, ``base``
 the single-card tier the port trains on the H100."""
 from repro_torch.configs.base import ModelConfig
@@ -18,12 +18,28 @@ PAPER_TRANSFORMER = ModelConfig(
            "(single-host tier, ~0.4B params)",
 )
 
+PAPER_SSM_TINY = ModelConfig(
+    name="paper-ssm-tiny", family="ssm",
+    num_layers=2, d_model=64, vocab_size=256, tie_embeddings=True,
+    ssm_state=32, ssm_headdim=16, ssm_expand=2, ssm_chunk=16,
+    source="Mamba2/SSD mixer stack, CI tier",
+)
+
+PAPER_SSM = ModelConfig(
+    name="paper-ssm", family="ssm",
+    num_layers=24, d_model=1024, vocab_size=32768,
+    ssm_state=128, ssm_headdim=64, ssm_expand=2, ssm_chunk=256,
+    source="Mamba2/SSD mixer stack, single-host tier",
+)
+
 ZOO = {
     ("transformer", "tiny"): PAPER_TRANSFORMER_TINY,
     ("transformer", "base"): PAPER_TRANSFORMER,
+    ("ssm", "tiny"): PAPER_SSM_TINY,
+    ("ssm", "base"): PAPER_SSM,
 }
 
-ZOO_MODELS = ("transformer",)
+ZOO_MODELS = ("transformer", "ssm")
 ZOO_TIERS = ("tiny", "base")
 
 

@@ -1,11 +1,15 @@
-"""Move dense-transformer weights between the JAX tree and the port.
+"""Move dense-transformer and SSM-stack weights between the JAX tree and
+the port.
 
 The JAX tree (``repro.models.transformer.init_params``, as numpy arrays) is
 ``{"embed", "final_norm", "head"?, "prefix": [], "blocks": (block,)}`` with
-``block = {ln1, ln2, mixer: {wq, wk, wv, wo}, mlp: {wg, wi, wo}}`` and each
-block leaf stacked over ``n_blocks`` on axis 0: layer ``b·P + p`` is
-``blocks[p][...][b]``. Both sides use the ``x @ W`` layout, so every leaf is
-copied as it is. bf16 leaves travel as their raw 16-bit patterns.
+each block leaf stacked over ``n_blocks`` on axis 0: layer ``b·P + p`` is
+``blocks[p][...][b]``. A block is ``{ln1, ln2, mixer: {wq, wk, wv, wo},
+mlp: {wg, wi, wo}}`` for an attention layer with an MLP, and ``{ln1,
+mixer: {in_proj, conv_w, conv_b, A_log, D, dt_bias, gnorm, out_proj},
+mlp: {}}`` for an SSM layer without one (no ``ln2``). Both sides use the
+``x @ W`` layout, so every leaf is copied as it is. bf16 leaves travel as
+their raw 16-bit patterns.
 """
 from __future__ import annotations
 
@@ -15,16 +19,20 @@ import torch
 from repro_torch.models.transformer import stack_plan
 
 _TOP = ("embed", "final_norm", "head")
-_MIXER = ("wq", "wk", "wv", "wo")
-_MLP = ("wg", "wi", "wo")
+_MIXER = {"attn": ("wq", "wk", "wv", "wo"),
+          "ssm": ("in_proj", "conv_w", "conv_b", "A_log", "D", "dt_bias",
+                  "gnorm", "out_proj")}
+_MLP = {"swiglu": ("wg", "wi", "wo"), "none": ()}
 
 
-def _layer_keys():
+def _layer_keys(spec):
+    """(path in the JAX block, name in the port's layer) of each leaf."""
     yield ("ln1",), "ln1"
-    yield ("ln2",), "ln2"
-    for n in _MIXER:
+    if spec.mlp != "none":
+        yield ("ln2",), "ln2"
+    for n in _MIXER[spec.mixer]:
         yield ("mixer", n), f"mixer.{n}"
-    for n in _MLP:
+    for n in _MLP[spec.mlp]:
         yield ("mlp", n), f"mlp.{n}"
 
 
@@ -56,8 +64,8 @@ def params_from_jax(tree, cfg) -> dict:
         raise ValueError("prefix layers do not match the config")
     P = len(block)
     sd = {k: _to_torch(tree[k]) for k in _TOP if k in tree}
-    for p in range(P):
-        for path, name in _layer_keys():
+    for p, spec in enumerate(block):
+        for path, name in _layer_keys(spec):
             leaf = np.asarray(_get(tree["blocks"][p], path))
             for b in range(n_blocks):
                 sd[f"layers.{b * P + p}.{name}"] = _to_torch(leaf[b])
@@ -71,9 +79,9 @@ def params_to_jax(state_dict, cfg) -> dict:
     tree = {k: _to_numpy(state_dict[k]) for k in _TOP if k in state_dict}
     tree["prefix"] = []
     blocks = []
-    for p in range(P):
+    for p, spec in enumerate(block):
         bp = {"mixer": {}, "mlp": {}}
-        for path, name in _layer_keys():
+        for path, name in _layer_keys(spec):
             leaf = np.stack([_to_numpy(state_dict[f"layers.{b * P + p}.{name}"])
                              for b in range(n_blocks)])
             if len(path) == 1:

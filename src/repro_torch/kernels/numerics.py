@@ -31,6 +31,13 @@ ATTN_SHAPES = [
     (1, 128, 32, False, None),  # non-causal (encoder/cross)
 ]
 
+# ssd_scan: (b, S, nh, hd, G, ds, chunk)
+SSD_SHAPES = [
+    (2, 128, 4, 32, 1, 16, 32),
+    (2, 64, 8, 16, 1, 32, 16),   # paper-ssm-tiny (d_inner=128, hd=16)
+    (1, 96, 2, 16, 2, 8, 32),    # S not a multiple of the chunk
+]
+
 
 def gqa_split(bh: int):
     """(B, H, K) for a flattened B·H of ``ATTN_SHAPES``: four query heads

@@ -1,6 +1,7 @@
 """Training launcher: the single-device per-step ISGD engine.
 
 Port of the per-step engine of ``repro.launch.train`` for the dense
+(``--model transformer``) and Mamba2/SSD (``--model ssm``) entries of the
 ``paper_transformer`` zoo. It builds the model, draws the synthetic LM
 token stream (``make_lm_tokens(0, n_seqs, seq, vocab)``) into an FCPR ring
 (``seed=1``), and trains through ``repro_torch.train.train``, printing the
@@ -14,8 +15,11 @@ the card the kernels are built before the clock starts.
   PYTHONPATH=src python -m repro_torch.launch.train --model transformer \\
       --tier base --kernels cuda --precision bf16 --batch 8 --seq 1024 \\
       --n-seqs 32 --steps 12 --k-sigma 1.0 --stop 3
+  PYTHONPATH=src python -m repro_torch.launch.train --model ssm --tier base \\
+      --kernels cuda --precision bf16 --batch 8 --seq 1024 --n-seqs 32 \\
+      --steps 12 --k-sigma 1.0 --stop 3
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --tier tiny \\
-      --steps 6 --seq 64 --n-seqs 32
+      --steps 6 --seq 64 --n-seqs 32 [--model ssm]
 """
 from __future__ import annotations
 

@@ -1,13 +1,15 @@
 """Model API: ``build_model(cfg, ...)`` -> ``Model``, the surface the trainer
 and the launcher use. Port of the training half of ``repro.models.api``.
 
-``kernels`` picks the attention and loss implementations at build time:
+``kernels`` picks the mixer and loss implementations at build time:
 
-  * ``"cuda"``: ``gqa_flash`` and ``fused_xent_sum``, whose wrappers launch
-    the hand-written CUDA kernels on a CUDA device, and compute their plain
+  * ``"cuda"``: ``gqa_flash`` (attention layers), ``ssd_chunked_kernel``
+    (SSM layers) and ``fused_xent_sum``, whose wrappers launch the
+    hand-written CUDA kernels on a CUDA device, and compute their plain
     PyTorch versions on a CPU device (the CPU tests run this way);
-  * ``"reference"``: the model's own plain paths, ``_attend_chunked`` and
-    ``chunked_xent``, as the JAX package's ``"reference"``.
+  * ``"reference"``: the model's own plain paths, ``_attend_chunked``,
+    ``ssm.ssd_chunked`` and ``chunked_xent``, as the JAX package's
+    ``"reference"``.
 
 Nothing is resolved behind the caller's back: the requested mode is the
 mode that runs.

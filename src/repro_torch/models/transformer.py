@@ -1,16 +1,19 @@
-"""Dense decoder-only transformer: parameters, forward, head and LM loss.
+"""Decoder-only stack for the dense and ssm families: parameters, forward,
+head and LM loss.
 
-Port of the dense path of ``repro.models.transformer``. The model is an
-``nn.Module`` whose weights keep the JAX layout; its ``state_dict`` names
-are ``embed``, ``final_norm``, ``head`` (untied only) and
-``layers.{i}.{ln1,ln2,mixer.{wq,wk,wv,wo},mlp.{wg,wi,wo}}``
+Port of the dense and ssm paths of ``repro.models.transformer``. The model
+is an ``nn.Module`` whose weights keep the JAX layout; its ``state_dict``
+names are ``embed``, ``final_norm``, ``head`` (untied only) and, per layer,
+``layers.{i}.ln1``, ``layers.{i}.mixer.*`` (attention ``wq, wk, wv, wo``;
+SSM ``in_proj, conv_w, conv_b, A_log, D, dt_bias, gnorm, out_proj``) and,
+where the layer has an MLP, ``layers.{i}.{ln2, mlp.{wg, wi, wo}}``
 (``repro_torch.convert`` maps them to and from the JAX tree).
 
 ``remat`` recomputes each layer in the backward pass
 (``torch.utils.checkpoint``, one layer per checkpoint as the JAX package
-checkpoints one dense block), so under ``kernels="cuda"`` the attention
-kernel runs twice per layer per loss-and-gradient: once in the forward and
-once in the recomputation.
+checkpoints one block), so under ``kernels="cuda"`` the mixer's kernel
+(attention or SSD) runs twice per layer per loss-and-gradient: once in the
+forward and once in the recomputation.
 """
 from __future__ import annotations
 
@@ -24,52 +27,93 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 
 LOSS_CHUNK = 512
+FAMILIES = ("dense", "ssm")
 
 
 @dataclass(frozen=True)
 class LayerSpec:
-    """One layer of the stack: GQA attention (sliding ``window`` or full)
-    and a SwiGLU MLP, the dense family's only kind."""
+    mixer: str                   # 'attn' | 'ssm'
     window: Optional[int]
+    mlp: str                     # 'swiglu' | 'none'
+
+
+def _mixer_for(cfg) -> tuple:
+    if cfg.family == "ssm":
+        return "ssm", None
+    return "attn", cfg.sliding_window
+
+
+def _mlp_for(cfg) -> str:
+    return "none" if cfg.d_ff == 0 else "swiglu"    # mamba2: mixer-only layers
+
+
+def layer_spec(cfg) -> LayerSpec:
+    """The layer of the dense and ssm families, the same at every depth."""
+    mixer, window = _mixer_for(cfg)
+    return LayerSpec(mixer, window, _mlp_for(cfg))
 
 
 def stack_plan(cfg):
-    """-> (prefix_specs, block_specs, n_blocks); the dense family has no
-    prefix and a one-layer block."""
-    if cfg.family != "dense":
+    """-> (prefix_specs, block_specs, n_blocks); the dense and ssm families
+    have no prefix and a one-layer block."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-    spec = LayerSpec(cfg.sliding_window)
-    return [], [spec], cfg.num_layers
+    return [], [layer_spec(cfg)], cfg.num_layers
 
 
 def _dense(shape, dtype, device):
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
+def _f32(shape, device):
+    return nn.Parameter(torch.zeros(shape, dtype=torch.float32, device=device))
+
+
+def _attn_params(cfg, dtype, device):
+    d, H, K, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return {"wq": _dense((d, H * hd), dtype, device),
+            "wk": _dense((d, K * hd), dtype, device),
+            "wv": _dense((d, K * hd), dtype, device),
+            "wo": _dense((H * hd, d), dtype, device)}
+
+
+def _ssm_params(cfg, dtype, device):
+    d, di, nh = cfg.d_model, cfg.d_inner, cfg.ssm_nheads
+    cch = S.conv_channels(cfg)
+    return {"in_proj": _dense((d, 2 * di + 2 * cfg.ssm_ngroups * cfg.ssm_state
+                               + nh), dtype, device),
+            "conv_w": _dense((cfg.conv_width, cch), dtype, device),
+            "conv_b": _dense((cch,), dtype, device),
+            "A_log": _f32((nh,), device),
+            "D": _f32((nh,), device),
+            "dt_bias": _f32((nh,), device),
+            "gnorm": _f32((di,), device),
+            "out_proj": _dense((di, d), dtype, device)}
+
+
 class Layer(nn.Module):
     def __init__(self, cfg, spec: LayerSpec, dtype, device):
         super().__init__()
-        d, H, K, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        f32 = dict(dtype=torch.float32, device=device)
+        d = cfg.d_model
         self.spec = spec
-        self.ln1 = nn.Parameter(torch.zeros((d,), **f32))
-        self.ln2 = nn.Parameter(torch.zeros((d,), **f32))
-        self.mixer = nn.ParameterDict({
-            "wq": _dense((d, H * hd), dtype, device),
-            "wk": _dense((d, K * hd), dtype, device),
-            "wv": _dense((d, K * hd), dtype, device),
-            "wo": _dense((H * hd, d), dtype, device)})
-        self.mlp = nn.ParameterDict({
-            "wg": _dense((d, cfg.d_ff), dtype, device),
-            "wi": _dense((d, cfg.d_ff), dtype, device),
-            "wo": _dense((cfg.d_ff, d), dtype, device)})
+        self.ln1 = _f32((d,), device)
+        if spec.mlp == "swiglu":
+            self.ln2 = _f32((d,), device)
+        mixer = _attn_params if spec.mixer == "attn" else _ssm_params
+        self.mixer = nn.ParameterDict(mixer(cfg, dtype, device))
+        if spec.mlp == "swiglu":
+            self.mlp = nn.ParameterDict({
+                "wg": _dense((d, cfg.d_ff), dtype, device),
+                "wi": _dense((d, cfg.d_ff), dtype, device),
+                "wo": _dense((cfg.d_ff, d), dtype, device)})
 
 
 class Transformer(nn.Module):
-    """Parameters of the dense stack, allocated uninitialized;
-    ``init_params`` fills them."""
+    """Parameters of the stack, allocated uninitialized; ``init_params``
+    fills them."""
 
     def __init__(self, cfg, *, dtype=torch.bfloat16, device="cuda"):
         super().__init__()
@@ -77,8 +121,7 @@ class Transformer(nn.Module):
         Vp, d = cfg.padded_vocab, cfg.d_model
         self.cfg = cfg
         self.embed = _dense((Vp, d), dtype, device)
-        self.final_norm = nn.Parameter(
-            torch.zeros((d,), dtype=torch.float32, device=device))
+        self.final_norm = _f32((d,), device)
         self.head = None if cfg.tie_embeddings else _dense((d, Vp), dtype, device)
         self.layers = nn.ModuleList(Layer(cfg, block[0], dtype, device)
                                     for _ in range(n_blocks))
@@ -88,8 +131,10 @@ class Transformer(nn.Module):
 def init_params(model: Transformer, seed: int = 0) -> Transformer:
     """Fill ``model`` from a ``torch.Generator`` seeded with ``seed`` on the
     model's device: dense weights normal·1/√fan_in (drawn in f32, then cast),
-    norm scales zero. Not the JAX package's draws (tests carry JAX weights
-    over with ``repro_torch.convert``)."""
+    norm scales and biases zero, and the SSM leaves as ``init_ssm`` sets
+    them: ``A_log = log(linspace(1, 16, nh))``, ``D = 1``, ``dt_bias =
+    log(expm1(0.01))``. The random draws are not the JAX package's (tests
+    carry JAX weights over with ``repro_torch.convert``)."""
     dev = model.embed.device
     gen = torch.Generator(device=dev).manual_seed(seed)
     for name, p in model.named_parameters():
@@ -98,6 +143,15 @@ def init_params(model: Transformer, seed: int = 0) -> Transformer:
             continue
         w = torch.randn(p.shape, generator=gen, dtype=torch.float32, device=dev)
         p.copy_(w * (1.0 / math.sqrt(p.shape[-2])))
+    for layer in model.layers:
+        if layer.spec.mixer == "ssm":
+            m = layer.mixer
+            nh = m["A_log"].shape[0]
+            m["A_log"].copy_(torch.log(torch.linspace(1.0, 16.0, nh,
+                                                      dtype=torch.float32)))
+            m["D"].fill_(1.0)
+            m["dt_bias"].copy_(torch.log(torch.expm1(
+                torch.full((nh,), 0.01, dtype=torch.float32))))
     return model
 
 
@@ -105,9 +159,18 @@ def init_params(model: Transformer, seed: int = 0) -> Transformer:
 # forward
 # ---------------------------------------------------------------------------
 def apply_layer(layer: Layer, cfg, x, positions, use_kernels: bool = False):
+    """``use_kernels`` routes the mixer through its kernel (``gqa_flash``
+    or ``ssd_chunked_kernel``); otherwise the plain paths run."""
+    spec = layer.spec
     h = L.rms_norm(x, layer.ln1, cfg.norm_eps)
-    x = x + L.attn_forward(layer.mixer, cfg, h, positions,
-                           window=layer.spec.window, use_kernel=use_kernels)
+    if spec.mixer == "attn":
+        o = L.attn_forward(layer.mixer, cfg, h, positions, window=spec.window,
+                           use_kernel=use_kernels)
+    else:
+        o = S.ssm_forward(layer.mixer, cfg, h, use_kernel=use_kernels)
+    x = x + o
+    if spec.mlp == "none":
+        return x
     h = L.rms_norm(x, layer.ln2, cfg.norm_eps)
     return x + L.mlp(layer.mlp, h)
 
@@ -171,8 +234,8 @@ def lm_loss_fn(model: Transformer, batch, *, remat=True, use_kernels=False):
     """Next-token cross-entropy averaged over valid positions.
 
     Labels are the tokens rolled left by one, the last position masked.
-    Returns f32 ``(total_loss, data_loss)``; the dense family has no
-    auxiliary loss, so the two are the same tensor."""
+    Returns f32 ``(total_loss, data_loss)``; the dense and ssm families
+    have no auxiliary loss, so the two are the same tensor."""
     cfg = model.cfg
     tokens = batch["tokens"]
     h = forward(model, tokens, remat=remat, use_kernels=use_kernels)

@@ -9,6 +9,8 @@ machine that has neither:
 Tolerances are ``TOLERANCES[kernel][dtype]``; f32 products are kept out
 of TF32.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -18,9 +20,13 @@ from repro_torch.kernels.flash_attention import (attention_plain,
                                                  flash_attention, gqa_flash)
 from repro_torch.kernels.fused_xent import (fused_xent, fused_xent_sum,
                                             xent_plain)
-from repro_torch.kernels.numerics import (ATTN_SHAPES, TOLERANCES,
+from repro_torch.kernels.numerics import (ATTN_SHAPES, SSD_SHAPES, TOLERANCES,
                                           XENT_SHAPES, gqa_split)
+from repro_torch.kernels.ssd_scan import (chunk_len, ssd_chunked_kernel,
+                                          ssd_intra_chunk,
+                                          ssd_intra_chunk_plain)
 from repro_torch.models import build_model
+from repro_torch.models.ssm import ssd_chunked
 
 DTYPES = [torch.float32, torch.bfloat16]
 
@@ -126,11 +132,90 @@ def test_bf16_kernels_refuse_unstaged_layouts(cuda):
         flash_attention(q, kv, kv)
 
 
+def _ssd_inputs(b, S, nh, hd, G, ds, dtype, seed=0, dt_shift=0.0):
+    """x, B and C as views of one (b, S, nh·hd + 2·G·ds) tensor, the
+    model's layout after the convolution; dt and A in f32."""
+    rng = np.random.RandomState(seed)
+    xBC = torch.from_numpy(rng.randn(b, S, nh * hd + 2 * G * ds)
+                           .astype(np.float32)).cuda().to(dtype)
+    dt = np.log1p(np.exp(rng.randn(b, S, nh) + dt_shift)).astype(np.float32)
+    A = (-np.exp(rng.randn(nh) * 0.3)).astype(np.float32)
+    di = nh * hd
+    return (xBC[..., :di].reshape(b, S, nh, hd), torch.from_numpy(dt).cuda(),
+            torch.from_numpy(A).cuda(),
+            xBC[..., di:di + G * ds].reshape(b, S, G, ds),
+            xBC[..., di + G * ds:].reshape(b, S, G, ds))
+
+
+# (shape, dt_shift): the grid at dt = softplus(N(0, 1)), and chunks of 256
+# at the model's init dt, where every 64-position tile of the chunk and its
+# decay weigh above the tolerance (tests/test_torch_ssm.py shows why)
+DT_INIT = math.log(math.expm1(0.01))
+SSD_CASES = ([pytest.param(s, 0.0, id=str(s)) for s in
+              SSD_SHAPES + [(1, 100, 2, 16, 1, 8, 32), (2, 128, 4, 32, 2, 16, 64)]]
+             + [pytest.param(s, DT_INIT, id=f"{s}-init-dt") for s in
+                [(2, 512, 4, 64, 1, 128, 256), (1, 256, 4, 64, 2, 128, 256)]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape,dt_shift", SSD_CASES)
+def test_ssd_kernel_matches_plain(cuda, shape, dt_shift, dtype):
+    b, S, nh, hd, G, ds, chunk = shape
+    x, dt, A, B, C = _ssd_inputs(b, S, nh, hd, G, ds, dtype, dt_shift=dt_shift)
+    cl = chunk_len(S, chunk)
+    N = b * S // cl
+    ins = (x.reshape(N, cl, nh, hd), dt.reshape(N, cl, nh), A,
+           B.reshape(N, cl, G, ds), C.reshape(N, cl, G, ds))
+    n0 = ssd_intra_chunk.launches
+    out = ssd_intra_chunk(*ins)
+    torch.cuda.synchronize()
+    assert ssd_intra_chunk.launches == n0 + 1
+    for o, r in zip(out, ssd_intra_chunk_plain(*ins)):
+        assert o.dtype == torch.float32 and o.shape == r.shape
+        _close(o, r, _tol("ssd_scan", dtype))
+    y, state = ssd_chunked_kernel(x, dt, A, B, C, chunk=chunk)
+    y_ref, state_ref = ssd_chunked(x, dt, A, B, C, chunk=chunk)
+    _close(y, y_ref, _tol("ssd_scan", dtype))
+    _close(state, state_ref, _tol("ssd_scan", dtype))
+
+
+@pytest.mark.cuda
+def test_ssd_gradient_matches_plain(cuda):
+    """``ssd_chunked_kernel``'s backward against autograd through the plain
+    ``ssd_chunked``, in f32, on both outputs."""
+    ins = _ssd_inputs(2, 128, 4, 32, 2, 16, torch.float32, seed=1,
+                      dt_shift=-2.0)
+    rng = np.random.RandomState(2)
+    ry = torch.from_numpy(rng.randn(2, 128, 4, 32).astype(np.float32)).cuda()
+    rs = torch.from_numpy(rng.randn(2, 4, 32, 16).astype(np.float32)).cuda()
+    grads = []
+    for fn in (ssd_chunked_kernel, ssd_chunked):
+        t = [a.detach().clone().requires_grad_(True) for a in ins]
+        y, s = fn(*t, chunk=64)
+        grads.append(torch.autograd.grad((y * ry).sum() + (s * rs).sum(), t))
+    rtol, atol = _tol("ssd_scan", torch.float32)
+    for a, b in zip(*grads):
+        _close(a, b, (rtol, atol * float(b.abs().max())))
+
+
 @pytest.mark.cuda
 def test_tiny_model_kernels_match_reference(cuda):
     """The tiny tier's loss and gradients through the kernels and through
     the model's plain paths, from one init, in f32."""
-    cfg = zoo_config("transformer", "tiny")
+    _kernels_match_reference(zoo_config("transformer", "tiny"))
+
+
+@pytest.mark.cuda
+def test_tiny_ssm_kernels_match_reference(cuda):
+    """The same for ``paper-ssm-tiny``: the SSD mixer through the
+    ``ssd_scan`` kernel against the plain ``ssd_chunked``."""
+    n0 = ssd_intra_chunk.launches
+    _kernels_match_reference(zoo_config("ssm", "tiny"))
+    assert ssd_intra_chunk.launches > n0
+
+
+def _kernels_match_reference(cfg):
     tokens = torch.from_numpy(np.random.RandomState(0).randint(
         0, cfg.vocab_size, size=(2, 64)).astype(np.int32)).cuda()
     out = {}

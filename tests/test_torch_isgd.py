@@ -1,4 +1,5 @@
-"""Port vs JAX: ISGD trajectories on the tiny transformer.
+"""Port vs JAX: ISGD trajectories on the tiny transformer and the tiny SSM
+stack.
 
 Both packages train from the same JAX-initialized f32 weights on the same
 FCPR batches through ``make_train_step`` for three epochs of four batches.
@@ -40,12 +41,11 @@ from repro_torch.optim import RULES
 from repro_torch.train import make_train_step
 
 torch.set_num_threads(2)
-CFG = zoo_config("transformer", "tiny")
-JCFG = j_zoo_config("transformer", "tiny")
 STEPS, BATCH, LR, STOP = 12, 2, 0.005, 3
 
 
-def _run_both(rule, k_sigma, seed, zeta):
+def _run_both(rule, k_sigma, seed, zeta, model="transformer"):
+    CFG, JCFG = zoo_config(model, "tiny"), j_zoo_config(model, "tiny")
     data = make_lm_tokens(0, 4 * BATCH, 64, CFG.vocab_size)
     jp = JT.init_params(jax.random.PRNGKey(seed), JCFG, dtype=jnp.float32)
     tree = jax.tree.map(np.asarray, jp)
@@ -152,3 +152,16 @@ def test_solve_subproblem_matches_jax():
         assert tused == int(jused)
         np.testing.assert_allclose(tw[0].numpy(), np.asarray(jw["w"]),
                                    rtol=2e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("k_sigma,seed,zeta", [(-3.0, 0, None), (1.0, 6, 1.0)],
+                         ids=["every-step", "k1"])
+def test_trajectory_ssm_matches_jax(k_sigma, seed, zeta):
+    """The momentum rule on ``paper-ssm-tiny`` (SSD mixer layers, no MLP).
+    For k_sigma = 1, seed 6 is a setup where the branch fires three times
+    and no decision lies within 1e-3 relative of its limit."""
+    ref, port, margins = _run_both("momentum", k_sigma=k_sigma, seed=seed,
+                                   zeta=zeta, model="ssm")
+    _assert_same(ref, port)
+    assert sum(p[1] for p in port) >= 3          # the branch really fires
+    assert min(margins) > 1e-3, min(margins)

@@ -21,7 +21,7 @@ from repro_torch.kernels.flash_attention import kernel as attn_kernel
 from repro_torch.kernels.fused_xent import (fused_xent, fused_xent_sum,
                                             xent_plain)
 from repro_torch.kernels.fused_xent import kernel as xent_kernel
-from repro_torch.kernels.numerics import (ATTN_SHAPES, TOLERANCES,
+from repro_torch.kernels.numerics import (ATTN_SHAPES, SSD_SHAPES, TOLERANCES,
                                           XENT_SHAPES, gqa_split)
 
 torch.set_num_threads(2)
@@ -58,6 +58,7 @@ def test_tolerances_equal_jax():
     assert TOLERANCES == J_numerics.TOLERANCES
     assert XENT_SHAPES == J_numerics.XENT_SHAPES
     assert ATTN_SHAPES == J_numerics.ATTN_SHAPES
+    assert SSD_SHAPES == J_numerics.SSD_SHAPES
 
 
 @pytest.mark.parametrize("shape", XENT_SHAPES, ids=str)

@@ -41,6 +41,18 @@ def test_launcher_runs_on_cpu():
     assert done and "accelerated=" in done[0] and "sub_iters=" in done[0]
 
 
+def test_launcher_runs_ssm_on_cpu():
+    r = _run(["-m", "repro_torch.launch.train", "--device", "cpu",
+              "--model", "ssm", "--tier", "tiny", "--steps", "4",
+              "--seq", "32", "--n-seqs", "16", "--precision", "f32"])
+    assert r.returncode == 0, r.stderr
+    lines = r.stdout.splitlines()
+    assert lines[0].startswith("arch=paper-ssm-tiny "), r.stdout
+    assert any(l.startswith("step    1 loss=") for l in lines), r.stdout
+    done = [l for l in lines if l.startswith("done: 4 steps")]
+    assert done and "accelerated=" in done[0] and "sub_iters=" in done[0]
+
+
 def test_launcher_refuses_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("checks the no-CUDA refusal; this machine has a card")
