@@ -4,8 +4,11 @@
     python3 chip_smoke.py
 
 from the root of the repository. It builds the port's CUDA kernels from
-``src/repro_torch/kernels/csrc``, holds each kernel against its plain
-PyTorch version on the card, and drives the port's two training paths
+``src/repro_torch/kernels/csrc`` and shows from ptxas and the SASS how each
+was compiled (``wgmma`` and TMA in the bf16 ``fused_xent`` and
+``flash_attention``), holds each kernel against its plain PyTorch version
+on the card, times kernel, plain version and library call by device time
+(``cuda_ms``), and drives the port's two training paths
 through the launcher with ``--kernels cuda``: ``paper-transformer`` (base
 tier, 16 layers) and ``paper-ssm`` (base tier, 24 Mamba2/SSD layers), both
 at full width for 12 ISGD steps. For each path it checks that the run
@@ -23,7 +26,8 @@ from __future__ import annotations
 import json
 import math
 import os
-import statistics
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -62,21 +66,38 @@ def emit(phase: str, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
-    """Median device time of one call, by CUDA events around each call."""
+SLEEP_HZ = 2.0e9                           # cycles per second of torch.cuda._sleep, at most
+
+
+def cuda_ms(fn, reps: int = 30, warm: int = 3) -> float:
+    """Device time of one call: CUDA events around ``reps`` back-to-back
+    calls, all enqueued while the device still runs a sleep kernel, so the
+    device never waits on the host between them and no host work (checks,
+    allocation, ctypes, dispatch) is in the time. If the sleep ended before
+    the host had enqueued the last call, it is doubled and the run made
+    again. The same timer serves kernel, plain and library calls."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    sleep_s = max(0.02, 2 * reps * host_s)
+    for _ in range(6):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(sleep_s * SLEEP_HZ))
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
+        ahead = not a.query()      # still asleep after the last enqueue
         b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+        if ahead:
+            return a.elapsed_time(b) / reps
+        sleep_s *= 2
+    raise SystemExit("cuda_ms: the host could not enqueue ahead of the device")
 
 
 def compare(out, ref, tol) -> dict:
@@ -167,7 +188,84 @@ def phase_device():
     return smi.splitlines()[0]
 
 
+# the route each kernel's bf16 path takes, and the SASS that shows it
+DESIGN = {"fused_xent": "wgmma+tma", "flash_attention": "wgmma+tma",
+          "ssd_scan": "cuda-cores"}
+BF16_KERNEL = {"fused_xent": "xent_partial_bf16",
+               "flash_attention": "flash_fwd_bf16"}
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "WARPGROUP.DEPBAR")
+
+
+def ptxas_report(log: str) -> dict:
+    """{kernel: registers, stack, spills and static shared memory, and any
+    ptxas warning that it serialised the kernel's wgmma} from the
+    ``-Xptxas -v`` lines of one nvcc run."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if "wgmma" in line and "serialized" in line:
+            m = re.search(r"function '(\w+)'", line)
+            target = out.setdefault(m.group(1), {}) if m else cur
+            if target is not None:
+                target["ptxas_warning"] = line.strip()[-200:]
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m:
+            cur["stack"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem_static"] = int(sm.group(1)) if sm else 0
+    return out
+
+
+def sass_counts(lib: str) -> dict:
+    """{kernel: counts of HGMMA (wgmma), UTMALDG (TMA load), HMMA
+    (mma.sync) and WARPGROUP.DEPBAR (a wait for wgmma; one after every
+    HGMMA means they run one at a time) instructions} in a library's SASS,
+    or {} without cuobjdump."""
+    from repro_torch.kernels import build
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", lib], check=True, capture_output=True,
+                          text=True).stdout
+    out, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            cur = out.setdefault(m.group(1), dict.fromkeys(SASS_OPS, 0))
+        elif cur is not None:
+            for op in cur:
+                if re.search(rf"\b{re.escape(op)}\b", line):
+                    cur[op] += 1
+    return out
+
+
+def demangle(names) -> dict:
+    names = list(names)
+    if not names or shutil.which("c++filt") is None:
+        return {n: n for n in names}
+    plain = subprocess.run(["c++filt"], input="\n".join(names), check=True,
+                           capture_output=True, text=True).stdout.splitlines()
+    return {n: p.replace("(anonymous namespace)::", "").split("(")[0]
+            .removeprefix("void ") for n, p in zip(names, plain)}
+
+
 def phase_build():
+    """Builds every source (one nvcc each, in parallel), then prints one
+    line per source with each kernel's registers, spills and static shared
+    memory (ptxas -v) and its HGMMA / UTMALDG / HMMA counts (cuobjdump).
+    The bf16 routes of fused_xent and flash_attention must show wgmma and
+    TMA and no mma.sync."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     libs = build.build_all()
@@ -175,6 +273,20 @@ def phase_build():
         build.load(name)
     emit("build", seconds=time.perf_counter() - t0,
          libraries={k: os.path.relpath(v, ROOT) for k, v in libs.items()})
+    for name, lib in libs.items():
+        regs = ptxas_report(build.LOGS.get(name, ""))
+        sass = sass_counts(str(lib))
+        pretty = demangle(set(regs) | set(sass))
+        kernels = {pretty[k]: {**regs.get(k, {}), **sass.get(k, {})}
+                   for k in sorted(set(regs) | set(sass))}
+        emit("build_evidence", source=f"src/repro_torch/kernels/csrc/{name}.cu",
+             design=DESIGN[name], kernels=kernels)
+        if sass and name in BF16_KERNEL:
+            routes = {k: c for k, c in kernels.items() if BF16_KERNEL[name] in k}
+            if not routes or not all(c["HGMMA"] and c["UTMALDG"] and not c["HMMA"]
+                                     for c in routes.values()):
+                raise SystemExit(f"{name}: expected wgmma and TMA and no mma.sync "
+                                 f"in {BF16_KERNEL[name]}: {routes}")
 
 
 def check_xent(shape, dtype, tied=False, timed=False) -> dict:
@@ -200,6 +312,7 @@ def check_xent(shape, dtype, tied=False, timed=False) -> dict:
         res["library_ms"] = (cuda_ms(lambda: F.cross_entropy(
             (h @ w).float(), y64, reduction="none")) if V == Vp else None)
         res["achieved_tflops"] = ops / res["kernel_ms"] / 1e9
+        res["bound_share"] = res["bound_ms"] / res["kernel_ms"]
     emit("check", **res)
     if not res["ok"]:
         raise SystemExit(f"fused_xent disagrees with its plain version: {res}")
@@ -231,6 +344,7 @@ def check_attn(shape, dtype, causal=True, window=None, timed=False) -> dict:
             qt, kt, vt, is_causal=True, enable_gqa=True))
             if causal and window is None else None)
         res["achieved_tflops"] = ops / res["kernel_ms"] / 1e9
+        res["bound_share"] = res["bound_ms"] / res["kernel_ms"]
     emit("check", **res)
     if not res["ok"]:
         raise SystemExit(f"flash_attention disagrees with its plain version: {res}")
@@ -280,6 +394,7 @@ def check_ssd(shape, dtype, timed=False, dt_shift=0.0) -> dict:
         res["plain_ms"] = cuda_ms(lambda: ssd_intra_chunk_plain(*ins))
         res["library_ms"] = None      # no single PyTorch call computes it
         res["achieved_tflops"] = ops / res["kernel_ms"] / 1e9
+        res["bound_share"] = res["bound_ms"] / res["kernel_ms"]
     emit("check", **res)
     if not res["ok"]:
         raise SystemExit(f"ssd_scan disagrees with its plain version: {res}")
@@ -288,9 +403,11 @@ def check_ssd(shape, dtype, timed=False, dt_shift=0.0) -> dict:
 
 def phase_checks() -> dict:
     """Every kernel vs its plain version, f32 and bf16: the main paths'
-    shapes (timed), the ragged grid cells of the CPU tests and the tiny
-    tiers. -> {kernel: the timed bf16 main-shape result}."""
-    from repro_torch.kernels.numerics import (ATTN_SHAPES, SSD_SHAPES,
+    shapes (timed), the ragged grid cells of the CPU tests, the edges of
+    the wgmma + TMA routes (as ``tests/test_torch_cuda.py`` has them) and
+    the tiny tiers. -> {kernel: the timed bf16 main-shape result}."""
+    from repro_torch.kernels.numerics import (ATTN_EDGES, ATTN_SHAPES,
+                                              SSD_SHAPES, XENT_EDGES,
                                               XENT_SHAPES, gqa_split)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -300,12 +417,16 @@ def phase_checks() -> dict:
         for shape in XENT_SHAPES:
             check_xent(shape, dtype)
         check_xent((1024, 64, 256, 256), dtype, tied=True)   # tiny tier's head
+        for N, d, Vp, V, tied in XENT_EDGES:
+            check_xent((N, d, Vp, V), dtype, tied=tied)
         main["flash_attention"] = check_attn(ATTN_MAIN, dtype, timed=True)
         for BH, S, hd, causal, window in ATTN_SHAPES:
             B, H, K = gqa_split(BH)
             check_attn((B, S, H, K, hd), dtype, causal=causal, window=window)
         check_attn((2, 256, 8, 2, 128), dtype)                # hd = 128
         check_attn((8, 128, 4, 2, 16), dtype)                 # tiny tier
+        for B, S, H, K, hd, causal, window in ATTN_EDGES:
+            check_attn((B, S, H, K, hd), dtype, causal=causal, window=window)
         main["ssd_scan"] = check_ssd(SSD_MAIN, dtype, timed=True,
                                      dt_shift=DT_INIT)
         for shape in SSD_SHAPES:
@@ -398,10 +519,18 @@ def phase_parity(model: str, train_step1: float):
         raise SystemExit(f"layer 0's SSM mixer: kernel and plain disagree: {mixer}")
 
 
-def phase_profile(model: str):
+# the device kernels each wrapper launches (the first one once per call)
+DEVICE_KERNELS = {"fused_xent": ("xent_partial", "xent_combine"),
+                  "flash_attention": ("flash_fwd",),
+                  "ssd_scan": ("ssd_chunk_kernel",)}
+
+
+def phase_profile(model: str, main_checks: dict):
     """Device time by kernel over three training steps of a path (a fresh
     launcher run), from torch.profiler's CUDA events; the busy share is
-    that time over the launcher's own step clock."""
+    that time over the launcher's own step clock. Each of the port's
+    kernels on the path also gets its mean device time per call, beside
+    its isolated ``cuda_ms`` time at the main shape."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import train as launcher
@@ -412,8 +541,15 @@ def phase_profile(model: str):
                    if e.device_type == torch.autograd.DeviceType.CUDA),
                   reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
+    per_call = {}
+    for name, keys in DEVICE_KERNELS.items():
+        calls = sum(c for _, k, c in rows if keys[0] in k)
+        if calls:
+            total = sum(t for t, k, _ in rows if any(x in k for x in keys))
+            per_call[name] = {"calls": calls, "device_ms_per_call": total / 1e3 / calls,
+                              "isolated_ms": main_checks[name]["kernel_ms"]}
     emit("profile" + SUFFIX[model], steps=3, step_window_s=res["seconds"], device_busy_s=busy,
-         busy_share=busy / res["seconds"],
+         busy_share=busy / res["seconds"], kernels=per_call,
          top=[{"name": k[:90], "ms_per_step": t / 1e3 / 3, "calls": c,
                "share": t / 1e6 / busy} for t, k, c in rows[:15]])
 
@@ -429,7 +565,7 @@ def main():
     for model in MODELS:
         train[model] = phase_train(model)
         phase_parity(model, train[model]["step1_loss"])
-        phase_profile(model)
+        phase_profile(model, main_checks)
     kernels = []
     for name, path, replaces in (
             ("fused_xent", "transformer",
@@ -440,12 +576,14 @@ def main():
         r = main_checks[name]
         kernels.append({"name": name, "route": "cuda", "path": path,
                         "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-                        "replaces": replaces,
+                        "replaces": replaces, "design": DESIGN[name],
                         "launches": train[path]["launches"][name],
                         "max_abs_err": r["max_abs"], "ms": r["kernel_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"]})
+                        "library_ms": r["library_ms"],
+                        "achieved_tflops": r["achieved_tflops"],
+                        "bound_share": r["bound_share"]})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

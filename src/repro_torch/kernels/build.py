@@ -3,11 +3,13 @@ with a plain C interface, loaded with ``ctypes``.
 
 Each ``csrc/<name>.cu`` becomes ``build/repro_torch_kernels/<name>-<hash>.so``
 at the repository root (``REPRO_TORCH_BUILD_DIR`` overrides the directory),
-where ``<hash>`` covers the source and the compiler flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is. ``build_all``
-starts one ``nvcc`` per source, all at once. A library is written under a
-temporary name and renamed into place, so processes that build at the same
-time never load a half-written file.
+where ``<hash>`` covers the source, the shared headers ``csrc/*.cuh`` and
+the compiler flags, so an edited source is rebuilt and an unchanged one is
+loaded as it is. ``ptxas -v`` reports each kernel's registers, spills and
+static shared memory; the log of a build made by this process is kept in
+``LOGS``. ``build_all`` starts one ``nvcc`` per source, all at once. A
+library is written under a temporary name and renamed into place, so
+processes that build at the same time never load a half-written file.
 
 Nothing is built at import time: the CPU tests import every module, and
 this machine may have no ``nvcc``. A missing compiler or a failed build
@@ -25,9 +27,10 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("fused_xent", "flash_attention", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
 _LIBS: dict = {}
+LOGS: dict = {}     # name -> nvcc's output, for the builds of this process
 
 
 def build_dir() -> Path:
@@ -48,6 +51,7 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return build_dir() / f"{name}-{key}.so"
 
@@ -66,6 +70,7 @@ def _finish(name: str, proc, tmp: Path, out: Path):
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
+    LOGS[name] = log
     os.replace(tmp, out)
 
 

@@ -12,41 +12,52 @@
 // elements, so at the training shape (N=8192, d=1024, Vp=32768) it is
 // compute-bound by a wide margin (about 6500 operations per byte in bf16).
 //
-// Design (simple first):
-//   * A block owns BN=128 tokens and one contiguous range of vocab tiles
-//     of BV=128 columns. On the TPU one grid row sweeps the whole vocab in
-//     order; here the sweep is split over `nsplit` blocks per token tile so
-//     that the grid fills the 132 SMs (N=8192 gives only 64 token tiles).
-//     Each block writes its partial (max, sumexp, gold) and a second,
-//     one-thread-per-token kernel folds the partials. Partials whose range
-//     held only masked columns carry max = -1e30 and are washed out by
-//     exp(-1e30 - max) = 0, the same finite-sentinel rule the TPU kernel
-//     relies on.
-//   * The TPU kernel keeps the whole (bn, d) h tile resident in VMEM. At
-//     d = 1024 that does not fit in shared memory, so the depth is looped
-//     in chunks of BD=32 staged in shared memory.
-//   * bf16 (the training dtype): tensor cores through mma.sync m16n8k16
-//     with f32 accumulation. 8 warps, each a 32x64 piece of the 128x128
-//     logits tile. h must have unit stride along d; W is taken either as a
-//     (d, Vp) row-major head or as the transposed view of a (Vp, d)
-//     embedding (a tied head, no 64 MB copy per loss): the staging loop
-//     writes both into one [vocab][depth] layout in shared memory.
-//   * f32: the same tiling on the CUDA cores (each of 256 threads holds an
-//     8x8 block of the logits tile), through any strides, so that f32 is
-//     not rounded to TF32.
+// Both routes: a block owns BN=128 tokens and one contiguous range of vocab
+// tiles of BV=128 columns. On the TPU one grid row sweeps the whole vocab
+// in order; here the sweep is split over `nsplit` blocks per token tile so
+// that the grid fills the 132 SMs (N=8192 gives only 64 token tiles; the
+// wrapper chooses nsplit). Each block writes its partial (max, sumexp,
+// gold) and a second, one-thread-per-token kernel folds the partials.
+// Partials whose range held only masked columns carry max = -1e30 and are
+// washed out by exp(-1e30 - max) = 0, the same finite-sentinel rule the
+// TPU kernel relies on. The TPU kernel keeps the whole (bn, d) h tile
+// resident in VMEM; at d = 1024 that does not fit in shared memory, so the
+// depth is looped in chunks.
 //
-// Left for later: cp.async/TMA double buffering of the staged chunks,
-// wgmma with a deeper pipeline, and a fused backward.
+// bf16 (the training dtype): a Hopper GEMM mainloop whose epilogue is the
+// online (max, sumexp, gold) update in place of a store.
+//   * Three warpgroups: a producer (one thread issues TMA) and two
+//     consumers of 64 tokens each. The depth goes in chunks of BKD=64
+//     through a ring of XSTAGES buffers (h chunk 128x64, W chunk 64x128,
+//     128B swizzle) guarded by full/empty mbarriers; the ring runs on
+//     across vocab tiles, so the next tile's loads overlap this tile's
+//     epilogue. Rows, depth and columns outside the tensors load as zeros.
+//   * Each consumer accumulates its 64x128 logits tile with wgmma
+//     m64n128k16 from shared memory, keeping one product group in flight.
+//   * W in either layout without a copy: the untied (d, Vp) row-major head
+//     is an MN-major B operand (two 64-column TMA boxes, the transpose
+//     bit); the transposed view of a tied (Vp, d) embedding is a K-major B
+//     operand (one 128x64 box). The kernel is instantiated for each.
+//   * Epilogue: each thread tests its own accumulator columns against
+//     vocab_size (-1e30) and the label, and folds them into its rows'
+//     triples with exp2 (log2(e) folded into one FMA).
+//   * f32: the same tiling on the CUDA cores (each of 256 threads holds an
+//     8x8 block of the logits tile), depth chunks of BD=32 in shared
+//     memory, through any strides, so that f32 is not rounded to TF32.
+//
+// Left for later: 128x256 tiles or a persistent grid, and a fused backward.
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int BN = 128;      // tokens per block
 constexpr int BV = 128;      // vocab columns per tile
-constexpr int BD = 32;       // depth chunk staged in shared memory
-constexpr int THREADS = 256;
+constexpr int BD = 32;       // f32 route: depth chunk staged in shared memory
+constexpr int THREADS = 256; // f32 route
 constexpr float NEG = -1e30f;
 
 __device__ __forceinline__ float max4(float v) {   // over the 4 lanes of a quad
@@ -69,170 +80,182 @@ __device__ __forceinline__ float sum16(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16: wgmma + TMA
 // ---------------------------------------------------------------------------
-constexpr int LDS = BD + 8;  // bf16 per shared row: 80 bytes, 16-byte aligned, conflict-free
+constexpr int BKD = 64;                   // depth per stage: one 128-byte row
+constexpr int XSTAGES = 4;
+constexpr int H_BYTES = BN * BKD * 2;     // 16 KB: h chunk [token][depth]
+constexpr int W_BYTES = BKD * BV * 2;     // 16 KB: W chunk
+constexpr int STAGE_BYTES = H_BYTES + W_BYTES;
+constexpr int XSMEM = XSTAGES * STAGE_BYTES + 2 * XSTAGES * 8 + 1024;
+constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// grid (ceil(N/BN), nsplit), 384 threads; partial[3][nsplit][N] =
+// (max, sumexp, gold). KMAJOR: W is the transposed view of a (Vp, d)
+// embedding (th over (d, N), tw over (d, Vp)); else a (d, Vp) row-major
+// head (tw over (Vp, d)).
+template <bool KMAJOR>
+__global__ void __launch_bounds__(384, 1)
+xent_partial_bf16(const __grid_constant__ CUtensorMap th, const __grid_constant__ CUtensorMap tw,
+                  const int* __restrict__ labels, float* __restrict__ partial, int N, int d,
+                  int vocab, int n_vt, int tiles_per_split) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (hopper::smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t full = base + XSTAGES * STAGE_BYTES;
+  const uint32_t empty = full + 8 * XSTAGES;
 
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// grid (ceil(N/BN), nsplit); partial[3][nsplit][N] = (max, sumexp, gold).
-// h: unit stride on d, rows sh0 apart. W: w_kmajor ? element (k, v) at
-// k + v*sw1 (transposed embedding) : at k*sw0 + v. 16-byte aligned rows.
-__global__ void __launch_bounds__(THREADS)
-xent_partial_bf16(const __nv_bfloat16* __restrict__ h, long long sh0,
-                  const __nv_bfloat16* __restrict__ w, long long sw0, long long sw1,
-                  int w_kmajor, const int* __restrict__ labels, float* __restrict__ partial,
-                  int N, int d, int Vp, int vocab, int tiles_per_split) {
-  __shared__ __align__(16) __nv_bfloat16 hs[BN * LDS];   // [token][depth]
-  __shared__ __align__(16) __nv_bfloat16 ws[BV * LDS];   // [vocab][depth]
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int wr = warp % 4;                 // tokens wr*32 .. +31 of the tile
-  const int wc = warp / 4;                 // columns wc*64 .. +63 of the tile
   const int n0 = blockIdx.x * BN;
   const int split = blockIdx.y, nsplit = gridDim.y;
-  const int n_vt = (Vp + BV - 1) / BV;
   const int vt_begin = split * tiles_per_split;
   const int vt_end = min(vt_begin + tiles_per_split, n_vt);
+  const int nk = (d + BKD - 1) / BKD;
 
-  // this thread's 4 token rows: wr*32 + mi*16 + hi*8 + g, r = 2*mi + hi
-  int lbl[4];
-  float m[4], s[4], gold[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = n0 + wr * 32 + (r >> 1) * 16 + (r & 1) * 8 + g;
-    lbl[r] = row < N ? labels[row] : -1;
-    m[r] = NEG; s[r] = 0.f; gold[r] = 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < XSTAGES; ++s) {
+      hopper::mbar_init(full + 8 * s, 1);
+      hopper::mbar_init(empty + 8 * s, 8);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ----- producer warpgroup -----
+    hopper::setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int vt = vt_begin; vt < vt_end; ++vt)
+        for (int kc = 0; kc < nk; ++kc, ++it) {
+          const int s = it % XSTAGES;
+          const uint32_t hs = base + s * STAGE_BYTES, ws = hs + H_BYTES;
+          hopper::mbar_wait(empty + 8 * s, ((it / XSTAGES) & 1) ^ 1);
+          hopper::mbar_expect_tx(full + 8 * s, STAGE_BYTES);
+          hopper::tma_load_2d(hs, &th, full + 8 * s, kc * BKD, n0);
+          if constexpr (KMAJOR) {
+            hopper::tma_load_2d(ws, &tw, full + 8 * s, kc * BKD, vt * BV);
+          } else {
+            hopper::tma_load_2d(ws, &tw, full + 8 * s, vt * BV, kc * BKD);
+            hopper::tma_load_2d(ws + W_BYTES / 2, &tw, full + 8 * s, vt * BV + 64, kc * BKD);
+          }
+        }
+    }
+    return;
   }
 
+  // ----- consumer warpgroups: 64 tokens each -----
+  hopper::setmaxnreg_inc<232>();
+  const int wg = threadIdx.x / 128 - 1;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32, q = lane % 4;
+  const int r0 = n0 + wg * 64 + warp * 16 + lane / 4;   // rows r0, r0 + 8
+
+  int lbl[2];
+  float m[2], sum[2], gold[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 8 * i;
+    lbl[i] = row < N ? labels[row] : -1;
+    m[i] = NEG; sum[i] = 0.f; gold[i] = 0.f;
+  }
+
+  int it = 0;
   for (int vt = vt_begin; vt < vt_end; ++vt) {
     const int v0 = vt * BV;
-    float acc[2][8][4];
+    float acc[BV / 2];
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
+    for (int e = 0; e < BV / 2; ++e) acc[e] = 0.f;
+    for (int kc = 0; kc < nk; ++kc, ++it) {
+      const int s = it % XSTAGES;
+      const uint32_t hs = base + s * STAGE_BYTES + wg * (H_BYTES / 2), ws = base + s * STAGE_BYTES + H_BYTES;
+      hopper::mbar_wait(full + 8 * s, (it / XSTAGES) & 1);
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
 #pragma unroll
-      for (int nj = 0; nj < 8; ++nj)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.f;
-
-    for (int k0 = 0; k0 < d; k0 += BD) {
-      __syncthreads();
-      for (int e = threadIdx.x; e < BN * (BD / 8); e += THREADS) {
-        const int r = e / (BD / 8), c = (e % (BD / 8)) * 8;
-        uint4 val = make_uint4(0, 0, 0, 0);
-        if (n0 + r < N && k0 + c < d)
-          val = *reinterpret_cast<const uint4*>(h + (n0 + r) * sh0 + k0 + c);
-        *reinterpret_cast<uint4*>(hs + r * LDS + c) = val;
-      }
-      if (w_kmajor) {              // W[:, v] contiguous along depth
-        for (int e = threadIdx.x; e < BV * (BD / 8); e += THREADS) {
-          const int v = e / (BD / 8), c = (e % (BD / 8)) * 8;
-          uint4 val = make_uint4(0, 0, 0, 0);
-          if (v0 + v < Vp && k0 + c < d)
-            val = *reinterpret_cast<const uint4*>(w + (v0 + v) * sw1 + k0 + c);
-          *reinterpret_cast<uint4*>(ws + v * LDS + c) = val;
-        }
-      } else {                     // W[k, :] contiguous along vocab: transpose
-        for (int e = threadIdx.x; e < BD * (BV / 8); e += THREADS) {
-          const int k = e % BD, v = (e / BD) * 8;
-          uint4 val = make_uint4(0, 0, 0, 0);
-          if (k0 + k < d && v0 + v < Vp)
-            val = *reinterpret_cast<const uint4*>(w + (k0 + k) * sw0 + v0 + v);
-          const __nv_bfloat16* p = reinterpret_cast<const __nv_bfloat16*>(&val);
-#pragma unroll
-          for (int i = 0; i < 8; ++i) ws[(v + i) * LDS + k] = p[i];
+      for (int ks = 0; ks < BKD / 16; ++ks) {
+        const uint64_t da = hopper::make_desc(hs + ks * 32, 16, 1024, 1);
+        if constexpr (KMAJOR) {
+          const uint64_t db = hopper::make_desc(ws + ks * 32, 16, 1024, 1);
+          hopper::wgmma_ss_n128<0>(acc, da, db, kc > 0 || ks > 0);
+        } else {
+          const uint64_t db = hopper::make_desc(ws + ks * 2048, W_BYTES / 2, 1024, 1);
+          hopper::wgmma_ss_n128<1>(acc, da, db, kc > 0 || ks > 0);
         }
       }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BD / 16; ++kk) {
-        uint32_t a[2][4];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          const __nv_bfloat16* hp = hs + (wr * 32 + mi * 16 + g) * LDS + kk * 16 + 2 * t;
-          a[mi][0] = lds32(hp);
-          a[mi][1] = lds32(hp + 8 * LDS);
-          a[mi][2] = lds32(hp + 8);
-          a[mi][3] = lds32(hp + 8 * LDS + 8);
-        }
-#pragma unroll
-        for (int nj = 0; nj < 8; ++nj) {
-          const __nv_bfloat16* wp = ws + (wc * 64 + nj * 8 + g) * LDS + kk * 16 + 2 * t;
-          const uint32_t b0 = lds32(wp), b1 = lds32(wp + 8);
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi) mma_bf16(acc[mi][nj], a[mi], b0, b1);
-        }
-      }
+      hopper::wgmma_commit();
+      // keep this chunk's products in flight; the previous chunk's are done
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(acc);
+      if (kc > 0 && lane == 0) hopper::mbar_arrive(empty + 8 * ((it - 1) % XSTAGES));
     }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    if (lane == 0) hopper::mbar_arrive(empty + 8 * ((it - 1) % XSTAGES));
 
-    // fold this warp's 32x64 piece of the logits tile into its online
-    // (max, sumexp, gold); the four lanes of a quad share each row
+    // fold this 64x128 logits tile into the rows' online (max, sumexp, gold);
+    // the four lanes of a quad share each row
+    const bool edge = v0 + BV > vocab;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int mi = r >> 1, hi = r & 1;
+    for (int i = 0; i < 2; ++i) {
       float tmax = NEG;
 #pragma unroll
-      for (int nj = 0; nj < 8; ++nj)
+      for (int n = 0; n < BV / 8; ++n)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = v0 + wc * 64 + nj * 8 + 2 * t + e;
-          const float x = col < vocab ? acc[mi][nj][2 * hi + e] : NEG;
-          acc[mi][nj][2 * hi + e] = x;
+        for (int j = 0; j < 2; ++j) {
+          const int e = 4 * n + 2 * i + j;
+          const int col = v0 + 8 * n + 2 * q + j;
+          float x = acc[e];
+          if (edge && col >= vocab) x = NEG;
+          acc[e] = x;
+          if (col == lbl[i]) gold[i] += x;
           tmax = fmaxf(tmax, x);
-          if (col == lbl[r]) gold[r] += x;
         }
-      const float m_new = fmaxf(m[r], max4(tmax));
+      const float m_new = fmaxf(m[i], max4(tmax));
+      const float ml = m_new * LOG2E;
       float part = 0.f;
 #pragma unroll
-      for (int nj = 0; nj < 8; ++nj)
+      for (int n = 0; n < BV / 8; ++n)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) part += expf(acc[mi][nj][2 * hi + e] - m_new);
-      s[r] = s[r] * expf(m[r] - m_new) + part;
-      m[r] = m_new;
+        for (int j = 0; j < 2; ++j) part += exp2f(fmaf(acc[4 * n + 2 * i + j], LOG2E, -ml));
+      sum[i] = sum[i] * exp2f(fmaf(m[i], LOG2E, -ml)) + part;
+      m[i] = m_new;
     }
   }
 
-  // quad sums, then the two column halves meet in shared memory
-  float* red = reinterpret_cast<float*>(hs);     // BN x 3 floats
-  __syncthreads();
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    s[r] = sum4(s[r]);
-    gold[r] = sum4(gold[r]);
-    const int lr = wr * 32 + (r >> 1) * 16 + (r & 1) * 8 + g;
-    if (wc == 1 && t == 0) {
-      red[lr * 3 + 0] = m[r];
-      red[lr * 3 + 1] = s[r];
-      red[lr * 3 + 2] = gold[r];
+  for (int i = 0; i < 2; ++i) {
+    const float s = sum4(sum[i]), g = sum4(gold[i]);
+    const int row = r0 + 8 * i;
+    if (q == 0 && row < N) {
+      partial[(0 * nsplit + split) * (long long)N + row] = m[i];
+      partial[(1 * nsplit + split) * (long long)N + row] = s;
+      partial[(2 * nsplit + split) * (long long)N + row] = g;
     }
   }
-  __syncthreads();
-  if (wc == 0 && t == 0) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int lr = wr * 32 + (r >> 1) * 16 + (r & 1) * 8 + g;
-      const int row = n0 + lr;
-      if (row >= N) continue;
-      const float m1 = red[lr * 3 + 0];
-      const float mx = fmaxf(m[r], m1);
-      partial[(0 * nsplit + split) * (long long)N + row] = mx;
-      partial[(1 * nsplit + split) * (long long)N + row] =
-          s[r] * expf(m[r] - mx) + red[lr * 3 + 1] * expf(m1 - mx);
-      partial[(2 * nsplit + split) * (long long)N + row] = gold[r] + red[lr * 3 + 2];
-    }
-  }
+}
+
+template <bool KMAJOR>
+int launch_bf16(const void* h, long long sh0, const void* w, long long w_rows, const int* labels,
+                float* partial, int N, int d, int Vp, int vocab, int n_vt, int tiles_per_split,
+                int nsplit, cudaStream_t st) {
+  CUtensorMap th, tw;
+  const cuuint64_t h_dims[2] = {(cuuint64_t)d, (cuuint64_t)N};
+  const cuuint64_t h_strides[1] = {(cuuint64_t)sh0 * 2};
+  const cuuint32_t h_box[2] = {BKD, BN};
+  const cuuint64_t w_dims[2] = {KMAJOR ? (cuuint64_t)d : (cuuint64_t)Vp,
+                                KMAJOR ? (cuuint64_t)Vp : (cuuint64_t)d};
+  const cuuint64_t w_strides[1] = {(cuuint64_t)w_rows * 2};
+  const cuuint32_t w_box[2] = {KMAJOR ? (cuuint32_t)BKD : 64u,
+                               KMAJOR ? (cuuint32_t)BV : (cuuint32_t)BKD};
+  if (!hopper_host::encode_bf16(&th, h, 2, h_dims, h_strides, h_box) ||
+      !hopper_host::encode_bf16(&tw, w, 2, w_dims, w_strides, w_box))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(xent_partial_bf16<KMAJOR>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, XSMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((N + BN - 1) / BN, nsplit);
+  xent_partial_bf16<KMAJOR><<<grid, 384, XSMEM, st>>>(th, tw, labels, partial, N, d, vocab, n_vt,
+                                                      tiles_per_split);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -360,9 +383,12 @@ __global__ void xent_combine(const float* __restrict__ partial, float* __restric
 
 // h: (N, d) with strides (sh0, sh1); w: (d, Vp) with strides (sw0, sw1);
 // labels (N,) int32; out (N,) f32; partial: 3 * nsplit * N f32 scratch.
+// Block y of the grid sweeps vocab tiles [y * per, min((y + 1) * per,
+// n_vt)) with per = ceil(n_vt / nsplit) and n_vt = ceil(Vp / 128).
 // dtype 0 = float32 (any strides); dtype 1 = bfloat16, which needs
 // sh1 == 1 and sw0 == 1 or sw1 == 1, with 16-byte aligned rows (the
-// wrapper checks). Returns cudaGetLastError() after the launches.
+// wrapper checks; TMA refuses anything else). Returns cudaGetLastError()
+// after the launches.
 extern "C" int repro_fused_xent_fwd(const void* h, long long sh0, long long sh1,
                                     const void* w, long long sw0, long long sw1,
                                     const int* labels, float* out, float* partial,
@@ -371,21 +397,23 @@ extern "C" int repro_fused_xent_fwd(const void* h, long long sh0, long long sh1,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_vt = (Vp + BV - 1) / BV;
   const int tiles_per_split = (n_vt + nsplit - 1) / nsplit;
-  dim3 grid((N + BN - 1) / BN, nsplit);
+  int err;
   if (dtype == 0) {
+    dim3 grid((N + BN - 1) / BN, nsplit);
     xent_partial_f32<<<grid, THREADS, 0, st>>>(
         static_cast<const float*>(h), sh0, sh1, static_cast<const float*>(w), sw0, sw1, labels,
         partial, N, d, Vp, vocab, tiles_per_split);
+    err = static_cast<int>(cudaGetLastError());
   } else if (dtype == 1) {
     if (sh1 != 1 || (sw0 != 1 && sw1 != 1)) return static_cast<int>(cudaErrorInvalidValue);
-    xent_partial_bf16<<<grid, THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(h), sh0, static_cast<const __nv_bfloat16*>(w), sw0,
-        sw1, sw0 == 1 ? 1 : 0, labels, partial, N, d, Vp, vocab, tiles_per_split);
+    err = sw0 == 1 ? launch_bf16<true>(h, sh0, w, sw1, labels, partial, N, d, Vp, vocab, n_vt,
+                                       tiles_per_split, nsplit, st)
+                   : launch_bf16<false>(h, sh0, w, sw0, labels, partial, N, d, Vp, vocab, n_vt,
+                                        tiles_per_split, nsplit, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != 0) return err;
   xent_combine<<<(N + 255) / 256, 256, 0, st>>>(partial, out, N, nsplit);
   return static_cast<int>(cudaGetLastError());
 }

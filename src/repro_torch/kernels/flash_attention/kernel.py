@@ -10,12 +10,15 @@ CPU it computes ``attention_plain``; for a CUDA tensor it launches
 
 The kernel is bound by its operations: 4·hd per live (query, key) pair of
 each (batch, head), with S(S+1)/2 live pairs under the causal mask. In bf16
-it runs on the tensor cores; in f32 on the CUDA cores. Its design and what
-it leaves for later are in the source.
+it runs on the tensor cores (wgmma fed by TMA) on a persistent grid whose
+blocks take the work lists that ``schedule`` builds here; in f32 on the
+CUDA cores. Its design and what it leaves for later are in the source.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+import heapq
 from typing import Optional
 
 import torch
@@ -25,6 +28,9 @@ from repro_torch.kernels import build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
 NEG_INF = -1e30
+TQ = 128          # query rows of a bf16 work item, as in the source
+ITEM_COST = 1     # an item's fixed cost in key tiles (Q, the first S, the store)
+_SCHED: dict = {}  # (device, schedule key) -> the work lists on the device
 
 
 def attention_plain(q, k, v, *, causal: bool = True,
@@ -56,9 +62,72 @@ def _lib():
     if fn.argtypes is None:    # undeclared, ctypes passes pointers as 32-bit ints
         P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         fn.argtypes = [P, L, L, L, P, L, L, L, P, L, L, L, P,
-                       I, I, I, I, I, I, I, I, I, P]
+                       I, I, I, I, I, I, I, I, I, P, I, P]
         fn.restype = ctypes.c_int
     return fn
+
+
+def key_tile(hd: int) -> int:
+    """Keys per tile of the bf16 kernel, as in the source."""
+    return 64 if hd == 128 else 128
+
+
+def work_items(B: int, H: int, Sq: int, Sk: int, causal: bool,
+               window: int, hd: int) -> list:
+    """(q0, h, b, kt0, ntiles) of each bf16 work item, in item order
+    (heaviest causal query tiles first), as the source's ``work_item``
+    computes them: query rows [q0, q0 + TQ) of head h of batch b visit key
+    tiles kt0 .. kt0 + ntiles - 1. An item with no live key gets one tile,
+    all masked. ``window`` 0 means none."""
+    tk = key_tile(hd)
+    n_qt = -(-Sq // TQ)
+    out = []
+    for item in range(n_qt * H * B):
+        hb = item % (H * B)
+        q0 = (n_qt - 1 - item // (H * B)) * TQ
+        q_last = min(q0 + TQ, Sq) - 1
+        k_hi = min(Sk, q_last + 1) if causal else Sk
+        k_lo = max(0, q0 - window + 1) if window > 0 else 0
+        kt0 = k_lo // tk
+        ntiles = -(-k_hi // tk) - kt0
+        if ntiles <= 0:
+            kt0, ntiles = 0, 1
+        out.append((q0, hb % H, hb // H, kt0, ntiles))
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def schedule(B: int, H: int, Sq: int, Sk: int, causal: bool, window: int,
+             hd: int, sms: int) -> tuple:
+    """The persistent grid's work lists: each item (longest first) goes to
+    the block with the least work so far, counting ntiles + ITEM_COST.
+    -> (grid, table) with table = grid + 1 offsets, then the items of
+    block 0, block 1, ..., as the kernel reads them."""
+    items = work_items(B, H, Sq, Sk, causal, window, hd)
+    grid = min(sms, len(items))
+    heap = [(0, blk) for blk in range(grid)]
+    lists = [[] for _ in range(grid)]
+    for i in sorted(range(len(items)), key=lambda i: -items[i][4]):
+        load, blk = heapq.heappop(heap)
+        lists[blk].append(i)
+        heapq.heappush(heap, (load + items[i][4] + ITEM_COST, blk))
+    starts = [0]
+    for lst in lists:
+        starts.append(starts[-1] + len(lst))
+    return grid, tuple(starts + [i for lst in lists for i in lst])
+
+
+def _work_lists(device, B, H, Sq, Sk, causal, window, hd):
+    """``schedule`` for this card, as an int32 tensor on it (made once per
+    shape)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    key = (str(device), B, H, Sq, Sk, causal, window, hd, sms)
+    hit = _SCHED.get(key)
+    if hit is None:
+        grid, table = schedule(B, H, Sq, Sk, causal, window, hd, sms)
+        hit = _SCHED[key] = (grid, torch.tensor(table, dtype=torch.int32,
+                                                device=device))
+    return hit
 
 
 def _check(q, k, v, window):
@@ -91,8 +160,9 @@ def _check(q, k, v, window):
 
 
 def _check_bf16_layout(q, k, v):
-    """The tensor-core path stages 16-byte rows of K and V and reads q in
-    pairs: strides in multiples of 8 elements, 16-byte aligned tensors."""
+    """What the tensor-core path's 4-D TMA descriptors take: the outer
+    strides in multiples of 16 bytes (8 elements) and 16-byte aligned base
+    pointers."""
     for t in (q, k, v):
         if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
             raise ValueError(
@@ -113,12 +183,17 @@ def flash_attention(q, k, v, *, causal: bool = True,
     Sk, K = k.shape[1], k.shape[2]
     o = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    grid, lists = 0, None
+    if q.dtype == torch.bfloat16:
+        grid, lists = _work_lists(q.device, B, H, Sq, Sk, bool(causal),
+                                  window or 0, hd)
     with torch.cuda.device(q.device):
         err = _lib()(q.data_ptr(), *q.stride()[:3],
                      k.data_ptr(), *k.stride()[:3],
                      v.data_ptr(), *v.stride()[:3],
                      o.data_ptr(), B, Sq, Sk, H, K, hd, int(causal),
-                     window or 0, _DTYPES[q.dtype], stream)
+                     window or 0, _DTYPES[q.dtype],
+                     None if lists is None else lists.data_ptr(), grid, stream)
     flash_attention.launches += 1
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "

@@ -7,13 +7,15 @@ CPU it computes ``xent_plain``; for a CUDA tensor it launches
 ``csrc/fused_xent.cu`` or raises. It never falls back.
 
 The kernel is bound by its 2·N·d·Vp operations (compute, not bytes). In
-bf16 it runs on the tensor cores and takes W as a row-major head or as a
-transposed embedding; in f32 it runs on the CUDA cores through any
-strides. Its design and what it leaves for later are in the source.
+bf16 it runs on the tensor cores (wgmma fed by TMA) and takes W as a
+row-major head or as a transposed embedding; in f32 it runs on the CUDA
+cores through any strides. Its design and what it leaves for later are in
+the source.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -48,15 +50,38 @@ def _lib():
     return fn
 
 
-def _nsplit(device, N: int, Vp: int) -> int:
-    """Vocab splits per token tile: enough blocks for about four per SM,
-    and no split without a vocab tile of its own."""
+def _nsplit(device, N: int, Vp: int, dtype=torch.bfloat16) -> int:
+    """Vocab splits per token tile, for the device's SM count."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    n_tiles = -(-N // BN)
-    n_vt = -(-Vp // BV)
-    want = min(n_vt, max(1, -(-4 * sms // n_tiles)))
+    return split_count(sms, -(-N // BN), -(-Vp // BV), dtype == torch.bfloat16)
+
+
+@functools.lru_cache(maxsize=None)
+def split_count(sms: int, n_tiles: int, n_vt: int, one_per_sm: bool = True) -> int:
+    """The number of blocks that share each token tile's vocab sweep.
+
+    bf16 (``one_per_sm``): the kernel fits one block per SM, so the grid of
+    ``n_tiles × s`` blocks runs in ceil(n_tiles·s / sms) waves, each as
+    long as one block: ceil(n_vt / s) vocab tiles plus about one more for
+    filling the ring and writing the partials. Take the s in 1..n_vt that
+    makes the busiest SM's share the smallest, the smallest such s (fewer
+    partials to fold). f32: enough blocks for about four per SM. Either
+    way s is then made the count of non-empty ranges that
+    ``vocab_ranges`` cuts, so every split owns at least one vocab tile."""
+    if one_per_sm:
+        want = min(range(1, n_vt + 1),
+                   key=lambda s: -(-n_tiles * s // sms) * (-(-n_vt // s) + 1))
+    else:
+        want = min(n_vt, max(1, -(-4 * sms // n_tiles)))
     per = -(-n_vt // want)
     return -(-n_vt // per)
+
+
+def vocab_ranges(n_vt: int, nsplit: int) -> list:
+    """The vocab tiles [begin, end) that each split of the kernel sweeps,
+    as ``csrc/fused_xent.cu`` cuts them."""
+    per = -(-n_vt // nsplit)
+    return [(y * per, min((y + 1) * per, n_vt)) for y in range(nsplit)]
 
 
 def _check(h, w, labels, vocab_size):
@@ -89,9 +114,10 @@ def _check(h, w, labels, vocab_size):
 
 
 def _check_bf16_layout(h, w):
-    """The tensor-core path stages 16-byte rows: h with unit stride on d,
-    W as a row-major (d, Vp) head or the transposed view of a (Vp, d)
-    embedding, rows 16-byte aligned."""
+    """What the tensor-core path's TMA descriptors take: h with unit stride
+    on d, W as a row-major (d, Vp) head or the transposed view of a (Vp, d)
+    embedding, row strides in multiples of 16 bytes (8 elements) and
+    16-byte aligned base pointers."""
     d, Vp = w.shape
     w_rows = w.stride(0) if w.stride(1) == 1 else w.stride(1)
     ok = (h.stride(1) == 1 and (w.stride(0) == 1 or w.stride(1) == 1)
@@ -116,7 +142,7 @@ def fused_xent(h, w, labels, vocab_size: int):
         raise ValueError(f"fused_xent runs on cuda or cpu, not {h.device}")
     N, d = h.shape
     Vp = w.shape[1]
-    nsplit = _nsplit(h.device, N, Vp)
+    nsplit = _nsplit(h.device, N, Vp, h.dtype)
     out = torch.empty((N,), dtype=torch.float32, device=h.device)
     partial = torch.empty((3, nsplit, N), dtype=torch.float32, device=h.device)
     stream = torch.cuda.current_stream(h.device).cuda_stream

@@ -31,6 +31,30 @@ ATTN_SHAPES = [
     (1, 128, 32, False, None),  # non-causal (encoder/cross)
 ]
 
+# Edges of the bf16 wgmma + TMA routes (the port's own; the JAX package has
+# no counterpart): every head dim, ragged S (TMA zero-fills rows past S,
+# the mask drops key columns past Sk), a window that starts inside a key
+# tile, non-causal, and the main shape's 16/8 GQA.
+# flash_attention: (B, S, H, K, hd, causal, window)
+ATTN_EDGES = (
+    [(2, 100, 4, 2, hd, True, None) for hd in (16, 32, 64, 128)]
+    + [(2, 192, 4, 2, hd, False, None) for hd in (16, 32, 64, 128)]
+    + [(1, 192, 8, 2, hd, True, 64) for hd in (16, 32, 64, 128)]
+    + [(1, 512, 4, 1, 64, True, 100),     # first visited key tile > 0
+       (8, 1024, 16, 8, 64, True, None)]  # the training shape
+)
+
+# fused_xent: (N, d, Vp, V, tied) -- tied: W is the transposed view of a
+# (Vp, d) embedding (a K-major operand), else a (d, Vp) head (MN-major)
+XENT_EDGES = [
+    (2048, 1024, 32768, 32000, True),    # large, tied, padded vocab
+    (96, 64, 512, 500, True),            # N below one token tile
+    (96, 48, 1024, 1000, False),         # d = 48: depth zero-filled to 64
+    (384, 48, 256, 200, True),
+    (384, 64, 1024, 1024, False),
+    (200, 32, 384, 384, True),           # d = 32, three vocab tiles
+]
+
 # ssd_scan: (b, S, nh, hd, G, ds, chunk)
 SSD_SHAPES = [
     (2, 128, 4, 32, 1, 16, 32),

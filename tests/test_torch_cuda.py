@@ -20,8 +20,9 @@ from repro_torch.kernels.flash_attention import (attention_plain,
                                                  flash_attention, gqa_flash)
 from repro_torch.kernels.fused_xent import (fused_xent, fused_xent_sum,
                                             xent_plain)
-from repro_torch.kernels.numerics import (ATTN_SHAPES, SSD_SHAPES, TOLERANCES,
-                                          XENT_SHAPES, gqa_split)
+from repro_torch.kernels.numerics import (ATTN_EDGES, ATTN_SHAPES, SSD_SHAPES,
+                                          TOLERANCES, XENT_EDGES, XENT_SHAPES,
+                                          gqa_split)
 from repro_torch.kernels.ssd_scan import (chunk_len, ssd_chunked_kernel,
                                           ssd_intra_chunk,
                                           ssd_intra_chunk_plain)
@@ -92,6 +93,42 @@ def test_attention_kernel_matches_plain(cuda, shape, dtype):
     assert out.dtype == dtype and out.shape == q.shape
     _close(out, attention_plain(q, k, v, causal=causal, window=window),
            _tol("flash_attention", dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", ATTN_EDGES, ids=str)
+def test_attention_edges_match_plain(cuda, shape, dtype):
+    """The edges of the bf16 wgmma + TMA route: every head dim (each with
+    its own TMA swizzle), S = 100 and 192, non-causal, a window that starts
+    inside a key tile, and the training shape's 16/8 GQA."""
+    B, S, H, K, hd, causal, window = shape
+    rng = np.random.RandomState(0)
+    q, k, v = (torch.from_numpy(rng.randn(B, S, n, hd).astype(np.float32))
+               .cuda().to(dtype) for n in (H, K, K))
+    n0 = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 1
+    _close(out, attention_plain(q, k, v, causal=causal, window=window),
+           _tol("flash_attention", dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", XENT_EDGES, ids=str)
+def test_xent_edges_match_plain(cuda, shape, dtype):
+    """The same for ``fused_xent``: a large tied head (the transposed view,
+    a K-major operand), N = 96 and 384, d = 32 and 48, padded vocab."""
+    N, d, Vp, V, tied = shape
+    h, w, y = _xent_inputs(N, d, Vp, V, dtype)
+    if tied:
+        w = w.T.contiguous().T
+    n0 = fused_xent.launches
+    out = fused_xent(h, w, y, V)
+    torch.cuda.synchronize()
+    assert fused_xent.launches == n0 + 1
+    _close(out, xent_plain(h, w, y, V), _tol("fused_xent", dtype))
 
 
 @pytest.mark.cuda
