@@ -5,9 +5,9 @@
 
 from the root of the repository. It builds the port's CUDA kernels from
 ``src/repro_torch/kernels/csrc`` and shows from ptxas and the SASS how each
-was compiled (``wgmma`` and TMA in the bf16 ``fused_xent`` and
-``flash_attention``), holds each kernel against its plain PyTorch version
-on the card, times kernel, plain version and library call by device time
+was compiled (``wgmma`` and TMA in the bf16 routes of all three), holds
+each kernel against its plain PyTorch version on the card, times kernel,
+plain version and library call by device time
 (``cuda_ms``), and drives the port's two training paths
 through the launcher with ``--kernels cuda``: ``paper-transformer`` (base
 tier, 16 layers) and ``paper-ssm`` (base tier, 24 Mamba2/SSD layers), both
@@ -190,9 +190,10 @@ def phase_device():
 
 # the route each kernel's bf16 path takes, and the SASS that shows it
 DESIGN = {"fused_xent": "wgmma+tma", "flash_attention": "wgmma+tma",
-          "ssd_scan": "cuda-cores"}
+          "ssd_scan": "wgmma+tma"}
 BF16_KERNEL = {"fused_xent": "xent_partial_bf16",
-               "flash_attention": "flash_fwd_bf16"}
+               "flash_attention": "flash_fwd_bf16",
+               "ssd_scan": "ssd_chunk_bf16"}
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "WARPGROUP.DEPBAR")
 
 
@@ -263,9 +264,9 @@ def demangle(names) -> dict:
 def phase_build():
     """Builds every source (one nvcc each, in parallel), then prints one
     line per source with each kernel's registers, spills and static shared
-    memory (ptxas -v) and its HGMMA / UTMALDG / HMMA counts (cuobjdump).
-    The bf16 routes of fused_xent and flash_attention must show wgmma and
-    TMA and no mma.sync."""
+    memory (ptxas -v) and its HGMMA / UTMALDG / HMMA / WARPGROUP.DEPBAR
+    counts (cuobjdump). The bf16 route of every kernel must show wgmma and
+    TMA, no mma.sync and no register spills."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     libs = build.build_all()
@@ -284,9 +285,10 @@ def phase_build():
         if sass and name in BF16_KERNEL:
             routes = {k: c for k, c in kernels.items() if BF16_KERNEL[name] in k}
             if not routes or not all(c["HGMMA"] and c["UTMALDG"] and not c["HMMA"]
+                                     and not c.get("spill_stores")
                                      for c in routes.values()):
-                raise SystemExit(f"{name}: expected wgmma and TMA and no mma.sync "
-                                 f"in {BF16_KERNEL[name]}: {routes}")
+                raise SystemExit(f"{name}: expected wgmma and TMA, no mma.sync and "
+                                 f"no spills in {BF16_KERNEL[name]}: {routes}")
 
 
 def check_xent(shape, dtype, tied=False, timed=False) -> dict:
@@ -383,8 +385,10 @@ def check_ssd(shape, dtype, timed=False, dt_shift=0.0) -> dict:
            "rtol": tol[0], "atol": tol[1], "ok": all(p["ok"] for p in parts)}
     if timed:
         esz = x.element_size()
-        # live (i >= j) pairs of 2(ds + hd) operations, then 2·cl·hd·ds for
-        # the state, per (chunk, head)
+        # the function's own work, whatever computes it: live (i >= j)
+        # pairs of 2(ds + hd) operations (C·Bᵀ counted for every head), then
+        # 2·cl·hd·ds for the state, per (chunk, head). The bf16 kernel
+        # computes C·Bᵀ once per group, about half of this.
         ops = N * nh * (cl * (cl + 1) / 2 * 2 * (ds + hd) + 2 * cl * hd * ds)
         nbytes = ((N * cl * nh * hd + 2 * N * cl * G * ds) * esz      # x, B, C
                   + (N * cl * nh + nh) * 4                              # dt, A
@@ -407,8 +411,9 @@ def phase_checks() -> dict:
     the wgmma + TMA routes (as ``tests/test_torch_cuda.py`` has them) and
     the tiny tiers. -> {kernel: the timed bf16 main-shape result}."""
     from repro_torch.kernels.numerics import (ATTN_EDGES, ATTN_SHAPES,
-                                              SSD_SHAPES, XENT_EDGES,
-                                              XENT_SHAPES, gqa_split)
+                                              SSD_EDGES, SSD_SHAPES,
+                                              XENT_EDGES, XENT_SHAPES,
+                                              gqa_split)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     main = {}
@@ -433,7 +438,10 @@ def phase_checks() -> dict:
             check_ssd(shape, dtype)
         check_ssd((1, 100, 2, 16, 1, 8, 32), dtype)           # cl = 25
         check_ssd((2, 128, 4, 32, 2, 16, 64), dtype)          # two groups
-        check_ssd(SSD_MAMBA2, dtype, dt_shift=DT_INIT)
+        check_ssd(SSD_MAMBA2, dtype, dt_shift=DT_INIT,        # timed in bf16
+                  timed=dtype == torch.bfloat16)
+        for *shape, init_dt in SSD_EDGES:
+            check_ssd(tuple(shape), dtype, dt_shift=DT_INIT if init_dt else 0.0)
     return main                    # the bf16 entries: the training dtype
 
 
@@ -522,7 +530,7 @@ def phase_parity(model: str, train_step1: float):
 # the device kernels each wrapper launches (the first one once per call)
 DEVICE_KERNELS = {"fused_xent": ("xent_partial", "xent_combine"),
                   "flash_attention": ("flash_fwd",),
-                  "ssd_scan": ("ssd_chunk_kernel",)}
+                  "ssd_scan": ("ssd_chunk",)}
 
 
 def phase_profile(model: str, main_checks: dict):

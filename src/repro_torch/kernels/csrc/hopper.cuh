@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the wgmma + TMA kernels:
 // mbarriers, TMA tile loads, wgmma shared-memory descriptors and the
-// wgmma instructions themselves (raw PTX), register rebalancing between
-// the producer and the consumer warpgroups, and the host-side encoding of
-// TMA descriptors through libcuda's cuTensorMapEncodeTiled.
+// wgmma instructions themselves (raw PTX), ldmatrix, register rebalancing
+// between the producer and the consumer warpgroups, and the host-side
+// encoding of TMA descriptors through libcuda's cuTensorMapEncodeTiled.
 //
 // Shared-memory tiles are written by TMA with the swizzle that matches
 // the width of one tile row: 128 bytes (64 bf16) -> 128B swizzle, 64 bytes
@@ -157,6 +157,18 @@ template <int R> __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 template <int R> __device__ __forceinline__ void fence_regs(uint32_t (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// Four 8x8 b16 matrices from shared memory, transposed (ldmatrix .trans):
+// lanes 8i .. 8i+7 give the addresses of the 16-byte rows 0..7 of matrix
+// i, and r[i] of lane l holds its elements (2 (l%4), l/4) and
+// (2 (l%4) + 1, l/4), the first in the low half. With the rows running
+// along a wgmma's depth this is the A fragment of an MN-major operand.
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

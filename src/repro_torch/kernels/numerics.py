@@ -62,6 +62,27 @@ SSD_SHAPES = [
     (1, 96, 2, 16, 2, 8, 32),    # S not a multiple of the chunk
 ]
 
+# Edges of the bf16 wgmma + TMA route of ssd_scan (the port's own; the JAX
+# package has no counterpart): every head dim (x tiles are 64 wide, TMA
+# zero-fills past hd), state sizes 8 to 128 (B/C boxes of 32, zero-filled
+# past ds), chunks of 25 (ragged), 64, 128, 192 (an odd tile count: one
+# pair of row tiles is a single tile) and 256, one and two groups, 24
+# blocks of pairs whose 8 heads split unevenly into 5 slices on a 132-SM
+# card, and the training shape. init_dt: dt drawn as the model's init
+# draws it, softplus(N(log(expm1(0.01)), 1)), so that every 64-position
+# tile of a long chunk weighs above the tolerance.
+# ssd_scan: (b, S, nh, hd, G, ds, chunk, init_dt)
+SSD_EDGES = [
+    (2, 128, 4, 16, 1, 8, 64, False),
+    (2, 128, 4, 32, 2, 16, 64, False),
+    (1, 100, 3, 64, 1, 32, 32, False),     # cl = 25
+    (2, 256, 4, 32, 1, 128, 128, True),
+    (2, 384, 4, 64, 1, 64, 192, True),
+    (1, 512, 6, 16, 2, 128, 256, True),
+    (3, 1024, 8, 64, 1, 128, 256, True),   # 5 head slices of 8 heads
+    (8, 1024, 32, 64, 1, 128, 256, True),  # the training shape
+]
+
 
 def gqa_split(bh: int):
     """(B, H, K) for a flattened B·H of ``ATTN_SHAPES``: four query heads

@@ -13,10 +13,17 @@ them to every head first, which is the case G = nh here.
 For a tensor on the CPU it computes ``ssd_intra_chunk_plain``; for a CUDA
 tensor it launches ``csrc/ssd_scan.cu`` or raises. It never falls back.
 
-The kernel runs f32 FMAs on the CUDA cores for f32 and bf16 inputs alike,
-so it is bound by its operations at the f32 rate: about
-cl(cl+1)/2·2·(ds+hd) + 2·cl·hd·ds per (chunk, head). Its design and what it
-leaves for later are in the source.
+In bf16 (the training dtype) the kernel runs on the tensor cores
+(``wgmma``, fed by TMA): C·Bᵀ once per (chunk, group, row tile) for every
+head of the group, P = C·Bᵀ ⊙ L ⊙ dt as two bf16 terms (its rounding and
+the rounding of the remainder), the state's scaled x rounded to bf16 once,
+f32 accumulators. Its bound is then its bytes, 100 MB of the 139 MB at the
+training shape being the f32 outputs. TMA takes x, B and C where they lie,
+so their base addresses must be 16-byte aligned and the strides of their
+dimensions longer than 1 multiples of 8 elements; ``_check_bf16_layout``
+raises on anything else (the model's layouts all pass). In f32 (the
+``--precision f32`` comparison path) it runs f32 FMAs on the CUDA cores,
+with no TF32. Its design and what it leaves for later are in the source.
 """
 from __future__ import annotations
 
@@ -104,6 +111,21 @@ def _check(x, dt, A, B, C):
                          "negative dt strides")
     if nh > 65535 or N * (-(-cl // 64) + 1) >= 2**31:
         raise ValueError("ssd_intra_chunk grid out of range")
+    if x.dtype == torch.bfloat16 and x.device.type == "cuda":
+        _check_bf16_layout(x, B, C)
+
+
+def _check_bf16_layout(x, B, C):
+    """What the tensor-core route's 4-D TMA descriptors take: 16-byte
+    aligned base addresses and, on every outer dimension longer than 1, a
+    stride in multiples of 16 bytes (8 elements)."""
+    for name, t in (("x", x), ("B", B), ("C", C)):
+        if t.data_ptr() % 16 or any(st % 8 for st, n in zip(t.stride()[:3], t.shape[:3])
+                                    if n > 1):
+            raise ValueError(
+                f"ssd_intra_chunk in bf16 takes 16-byte aligned tensors whose "
+                f"outer strides are multiples of 8 elements; {name} has strides "
+                f"{t.stride()} at offset {t.data_ptr() % 16} bytes from 16")
 
 
 def ssd_intra_chunk(x, dt, A, B, C):

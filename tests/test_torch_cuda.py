@@ -20,9 +20,9 @@ from repro_torch.kernels.flash_attention import (attention_plain,
                                                  flash_attention, gqa_flash)
 from repro_torch.kernels.fused_xent import (fused_xent, fused_xent_sum,
                                             xent_plain)
-from repro_torch.kernels.numerics import (ATTN_EDGES, ATTN_SHAPES, SSD_SHAPES,
-                                          TOLERANCES, XENT_EDGES, XENT_SHAPES,
-                                          gqa_split)
+from repro_torch.kernels.numerics import (ATTN_EDGES, ATTN_SHAPES, SSD_EDGES,
+                                          SSD_SHAPES, TOLERANCES, XENT_EDGES,
+                                          XENT_SHAPES, gqa_split)
 from repro_torch.kernels.ssd_scan import (chunk_len, ssd_chunked_kernel,
                                           ssd_intra_chunk,
                                           ssd_intra_chunk_plain)
@@ -167,6 +167,13 @@ def test_bf16_kernels_refuse_unstaged_layouts(cuda):
     kv = torch.zeros(2, 64, 2, 20, dtype=torch.bfloat16, device="cuda")[..., :16]
     with pytest.raises(ValueError):
         flash_attention(q, kv, kv)
+    x = torch.zeros(2, 64, 4, 20, dtype=torch.bfloat16, device="cuda")[..., :16]
+    bc = torch.zeros(2, 64, 1, 16, dtype=torch.bfloat16, device="cuda")
+    dt = torch.full((2, 64, 4), 0.1, device="cuda")
+    n0 = ssd_intra_chunk.launches
+    with pytest.raises(ValueError):                  # head stride 20 elements
+        ssd_intra_chunk(x, dt, -torch.ones(4, device="cuda"), bc, bc)
+    assert ssd_intra_chunk.launches == n0
 
 
 def _ssd_inputs(b, S, nh, hd, G, ds, dtype, seed=0, dt_shift=0.0):
@@ -215,6 +222,18 @@ def test_ssd_kernel_matches_plain(cuda, shape, dt_shift, dtype):
     y_ref, state_ref = ssd_chunked(x, dt, A, B, C, chunk=chunk)
     _close(y, y_ref, _tol("ssd_scan", dtype))
     _close(state, state_ref, _tol("ssd_scan", dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("edge", SSD_EDGES, ids=str)
+def test_ssd_edges_match_plain(cuda, edge, dtype):
+    """The edges of the bf16 wgmma + TMA route (``numerics.SSD_EDGES``):
+    every head dim, state sizes 8 to 128, chunks of 25 to 256, two groups,
+    head slices of unequal size, and the training shape at init dt."""
+    *shape, init_dt = edge
+    test_ssd_kernel_matches_plain(cuda, tuple(shape), DT_INIT if init_dt else 0.0,
+                                  dtype)
 
 
 @pytest.mark.cuda

@@ -27,7 +27,7 @@ from repro.models import ssm as JS
 from repro.models import transformer as JT
 from repro_torch.configs import zoo_config
 from repro_torch.convert import params_from_jax, params_to_jax
-from repro_torch.kernels.numerics import SSD_SHAPES, TOLERANCES
+from repro_torch.kernels.numerics import SSD_EDGES, SSD_SHAPES, TOLERANCES
 from repro_torch.kernels.ssd_scan import (chunk_len, ssd_chunked_kernel,
                                           ssd_intra_chunk,
                                           ssd_intra_chunk_plain)
@@ -229,6 +229,151 @@ def test_ssd_wrapper_checks_its_inputs():
     with pytest.raises(ValueError):
         ssd_intra_chunk(*(t.to("meta") for t in (x, dt, A, B, C)))
     assert ssd_intra_chunk.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# the bf16 route of the kernel: its rounding points and its layouts
+# ---------------------------------------------------------------------------
+def _xbc_inputs(b, S, nh, hd, G, ds, chunk, dt_shift=0.0, seed=0):
+    """The card's checks' draws (chip_smoke.ssd_inputs): x, B and C as views
+    of one (b, S, nh·hd + 2·G·ds) tensor rounded to bf16 (held in f32 here),
+    dt = softplus(N(dt_shift, 1)), A = −exp(0.3·N(0, 1)); chunked to
+    (N, cl, ...) as the kernel takes them."""
+    rng = np.random.RandomState(seed)
+    di = nh * hd
+    xbc = torch.from_numpy(rng.randn(b, S, di + 2 * G * ds).astype(np.float32))
+    xbc = xbc.to(torch.bfloat16).to(torch.float32)
+    dt = np.log1p(np.exp(rng.randn(b, S, nh) + dt_shift)).astype(np.float32)
+    A = (-np.exp(rng.randn(nh) * 0.3)).astype(np.float32)
+    cl = chunk_len(S, chunk)
+    N = b * S // cl
+    return (xbc[..., :di].reshape(N, cl, nh, hd), torch.from_numpy(dt).reshape(N, cl, nh),
+            torch.from_numpy(A), xbc[..., di:di + G * ds].reshape(N, cl, G, ds),
+            xbc[..., di + G * ds:].reshape(N, cl, G, ds))
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _kernel_arith(x, dt, A, B, C, p_terms=2):
+    """The bf16 kernel's arithmetic, in torch on bf16-valued f32 inputs:
+    S = C·Bᵀ accumulated in f32; P = S ⊙ exp(cum_i − cum_j) ⊙ dt_j in f32
+    (zero selected above the diagonal), then as two bf16 terms (its
+    rounding and the rounding of the remainder) or, with p_terms=1, rounded
+    once; y = P·x accumulated in f32; the state's operand x·dt·w rounded to
+    bf16 once, states = x̃ᵀ·B in f32; decays in f32."""
+    N, cl, nh, hd = x.shape
+    rep = nh // B.shape[2]
+    Bh, Ch = B.repeat_interleave(rep, 2), C.repeat_interleave(rep, 2)
+    cum = torch.cumsum(dt * A, dim=1).transpose(1, 2)                 # (N, nh, cl)
+    diff = cum[..., :, None] - cum[..., None, :]
+    tri = torch.ones(cl, cl, dtype=torch.bool).tril()
+    L = torch.exp(torch.where(tri, diff, torch.full_like(diff, -math.inf)))
+    P = torch.einsum("nihd,njhd->nhij", Ch, Bh) * L * dt.transpose(1, 2)[:, :, None, :]
+    hi = _bf16(P)
+    Pk = hi + _bf16(P - hi) if p_terms == 2 else hi
+    y = torch.einsum("nhij,njhp->nihp", Pk, x)
+    w = torch.exp(cum[..., -1:] - cum).transpose(1, 2)                 # (N, cl, nh)
+    states = torch.einsum("njhp,njhd->nhpd", _bf16(x * (dt * w)[..., None]), Bh)
+    return y, states, torch.exp(cum[..., -1])
+
+
+def _jax_intra(ins):
+    x, dt, A, B, C = (t.numpy() for t in ins)
+    rep = x.shape[2] // B.shape[2]
+    return j_ssd_intra_chunk(*map(jnp.asarray, (
+        x, dt, A, np.repeat(B, rep, axis=2), np.repeat(C, rep, axis=2))), interpret=True)
+
+
+BT = TOLERANCES["ssd_scan"]["bfloat16"]
+
+
+@pytest.mark.parametrize("case", [
+    ((2, 256, 2, 64, 1, 128, 256), math.log(math.expm1(0.01))),   # chunk 256, init dt
+    ((1, 100, 3, 64, 1, 32, 32), 0.0),                             # cl = 25
+    ((2, 128, 4, 32, 2, 16, 64), 0.0)], ids=str)                    # two groups
+def test_bf16_rounding_points_fit_the_tolerance(case):
+    """The bf16 kernel's rounding points, emulated in torch, against the JAX
+    ``ssd_intra_chunk`` (interpret) on the same bf16-valued inputs, within
+    the bf16 tolerance: what the card's check will see, before the card."""
+    shape, shift = case
+    ins = _xbc_inputs(*shape, dt_shift=shift)
+    for o, r in zip(_kernel_arith(*ins), _jax_intra(ins)):
+        _close(o.numpy(), r, BT)
+
+
+def test_p_rounded_once_misses_the_bf16_tolerance():
+    """Why the kernel carries P in two bf16 terms: P = C·Bᵀ ⊙ L ⊙ dt rounded
+    once to bf16 puts y outside the bf16 tolerance (an error of about 0.1
+    where y is small) on the ragged chunk at dt ≈ 0.8, where the two-term P
+    stays within it by two orders of magnitude. The state's single rounding
+    fits (the test above)."""
+    ins = _xbc_inputs(1, 100, 3, 64, 1, 32, 32)
+    ref = _jax_intra(ins)[0]
+    once = _kernel_arith(*ins, p_terms=1)[0].numpy()
+    twice = _kernel_arith(*ins, p_terms=2)[0].numpy()
+    rtol, atol = BT
+    assert not np.allclose(once, ref, rtol=rtol, atol=atol)
+    assert np.abs(twice - np.asarray(ref)).max() < atol / 100
+
+
+@pytest.mark.parametrize("edge", [e for e in SSD_EDGES if e[0] * e[1] * e[2] <= 4096],
+                         ids=str)
+def test_ssd_plain_matches_jax_at_tma_edges(edge):
+    """The plain version (what the card's kernel is held to) against the JAX
+    package at the edges of the bf16 route (``numerics.SSD_EDGES``), f32."""
+    *shape, init_dt = edge
+    ins = _xbc_inputs(*shape, dt_shift=math.log(math.expm1(0.01)) if init_dt else 0.0)
+    for o, r in zip(ssd_intra_chunk(*ins), _jax_intra(ins)):
+        _close(o.numpy(), r, ST)
+
+
+def _model_layout(b, S, nh, hd, G, ds, chunk):
+    """x, B and C as the SSM mixer hands them to the kernel: views of the
+    convolution's bf16 (b, S, di + 2·G·ds) output, chunked by ``_forward``."""
+    di = nh * hd
+    xbc = torch.zeros(b, S, di + 2 * G * ds, dtype=torch.bfloat16)
+    cl = chunk_len(S, chunk)
+    N = b * S // cl
+    return (xbc[..., :di].reshape(b, S, nh, hd).reshape(N, cl, nh, hd),
+            xbc[..., di:di + G * ds].reshape(b, S, G, ds).reshape(N, cl, G, ds),
+            xbc[..., di + G * ds:].reshape(b, S, G, ds).reshape(N, cl, G, ds))
+
+
+def test_bf16_ssd_layout_check_takes_the_models_layouts():
+    """The bf16 route's TMA layout check takes every layout the model and
+    the card's checks give it: both tiers of ``paper-ssm``, every
+    ``SSD_SHAPES`` and ``SSD_EDGES`` shape, the ragged and two-group cases."""
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    shapes = [s for s in SSD_SHAPES] + [tuple(e[:7]) for e in SSD_EDGES]
+    shapes += [(1, 100, 2, 16, 1, 8, 32), (2, 128, 4, 32, 2, 16, 64)]
+    for tier in ("tiny", "base"):
+        c = zoo_config("ssm", tier)
+        shapes.append((1, 2 * c.ssm_chunk, c.ssm_nheads, c.ssm_headdim, c.ssm_ngroups,
+                       c.ssm_state, c.ssm_chunk))
+    for shape in shapes:
+        ssd_kernel._check_bf16_layout(*_model_layout(*shape))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 4, 7])
+def test_bf16_ssd_layout_check_refuses_what_tma_cannot_take(offset):
+    """A base address ``offset`` elements off 16 bytes, or a head, position
+    or chunk stride that is 4 elements off a multiple of 8, is refused; the
+    stride of a dimension of length 1 is never read."""
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    x, B, C = _model_layout(2, 128, 4, 32, 1, 16, 64)
+    buf = torch.zeros(x.numel() * 2 + 8, dtype=torch.bfloat16)
+    bad = [buf[offset:offset + x.numel()].view(x.shape),                 # base address
+           buf.as_strided(x.shape, (x.stride(0), x.stride(1), 36, 1)),    # head stride 36
+           buf.as_strided(x.shape, (x.stride(0), 4 * 36 + 4, 36, 1))]     # position stride
+    for bx in bad:
+        with pytest.raises(ValueError):
+            ssd_kernel._check_bf16_layout(bx, B, C)
+    with pytest.raises(ValueError):
+        ssd_kernel._check_bf16_layout(x, B, buf[offset:offset + C.numel()].view(C.shape))
+    one = buf.as_strided((2, 64, 1, 32), (64 * 40, 40, 12, 1))           # one head, stride 12
+    ssd_kernel._check_bf16_layout(one, B, C)
 
 
 # ---------------------------------------------------------------------------
