@@ -8,14 +8,25 @@ from the root of the repository. It builds the port's CUDA kernels from
 was compiled (``wgmma`` and TMA in the bf16 routes of all three), holds
 each kernel against its plain PyTorch version on the card, times kernel,
 plain version and library call by device time
-(``cuda_ms``), and drives the port's two training paths
+(``cuda_ms``), and drives the port's two zoo training paths
 through the launcher with ``--kernels cuda``: ``paper-transformer`` (base
 tier, 16 layers) and ``paper-ssm`` (base tier, 24 Mamba2/SSD layers), both
 at full width for 12 ISGD steps. For each path it checks that the run
 really launched that path's kernels, compares step 1's loss with the
-model's plain paths, and profiles three steps. Each phase prints one JSON
-line; the last two lines are the kernels summary and ``{"ok": true,
-"device": {...}}``.
+model's plain paths, and profiles three steps. Then each path runs again
+through the fused engine (``--chunk-steps 4``: a CUDA graph of one step,
+the accelerate branch and the Alg. 2 trips in IF nodes, K replays per
+chunk), once more with K = 1 on the transformer, and is held against its
+per-step run: the same accelerate and sub_iters sequences and every loss
+within PARITY_TIGHT. Three chunks of each are profiled, one profiler
+cycle a chunk, in a child process of this script
+(``--profile-chunked PATH SPEC``); there the port's kernels are counted
+from the profiler's device events (a graph launches them without passing
+through the wrappers' counters). The paper's
+``alexnet-small`` CNN (64 × 64 × 3, 1000 classes, f32 without TF32,
+batch 256) trains 24 steps through the per-step engine and again through
+the fused engine. Each phase prints one JSON line; the last two lines are
+the kernels summary and ``{"ok": true, "device": {...}}``.
 
 Nothing is caught: any failure exits nonzero before the last line. Without
 a CUDA device, or outside a checkout of the repository, it exits nonzero
@@ -52,6 +63,7 @@ SSD_MAIN = (8, 1024, 32, 64, 1, 128, 256)  # b, S, nh, hd, G, ds, chunk
 SSD_MAMBA2 = (1, 2048, 80, 64, 1, 128, 256)  # Mamba2-2.7B's mixer
 DT_INIT = math.log(math.expm1(0.01))       # dt_bias at init: dt ≈ 0.01–0.02
 PARITY_TIGHT = 1e-3                        # step-1 loss, relative
+CHUNK = 4                                  # K of the fused runs
 
 
 def train_args(model: str, steps: int = 12) -> list:
@@ -190,7 +202,9 @@ def phase_device():
 
 # the route each kernel's bf16 path takes, and the SASS that shows it
 DESIGN = {"fused_xent": "wgmma+tma", "flash_attention": "wgmma+tma",
-          "ssd_scan": "wgmma+tma"}
+          "ssd_scan": "wgmma+tma",
+          "graph_if": "CUDA-graph IF node: stream-capture helper and the "
+                      "one-thread kernel that sets its condition"}
 BF16_KERNEL = {"fused_xent": "xent_partial_bf16",
                "flash_attention": "flash_fwd_bf16",
                "ssd_scan": "ssd_chunk_bf16"}
@@ -481,7 +495,8 @@ def phase_train(model: str) -> dict:
                          f"ln({cfg.vocab_size}) = {math.log(cfg.vocab_size):.3f}")
     if launches != expect:
         raise SystemExit(f"kernel launches {launches} != expected {expect}")
-    return {"launches": launches, "step1_loss": log.losses[0]}
+    return {"launches": launches, "step1_loss": log.losses[0], "log": log,
+            "per_eval": {k: v // evals for k, v in expect.items()}}
 
 
 def phase_parity(model: str, train_step1: float):
@@ -562,10 +577,264 @@ def phase_profile(model: str, main_checks: dict):
                "share": t / 1e6 / busy} for t, k, c in rows[:15]])
 
 
+
+# ---------------------------------------------------------------------------
+# the fused engine (CUDA graph, IF nodes) and the paper's CNN
+# ---------------------------------------------------------------------------
+def device_rows(prof) -> list:
+    """(self device µs, name, calls) of every CUDA event, largest first,
+    without the profiler's own ``ProfilerStep#`` spans on the device
+    timeline."""
+    return sorted(((e.self_device_time_total, e.key, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.key.startswith("ProfilerStep")),
+                  reverse=True)
+
+
+def ms_after(log, first: int) -> float:
+    """ms per step after the first ``first`` steps, by the log's walls."""
+    n = len(log.wall) - first
+    return (log.wall[-1] - log.wall[first - 1]) / n * 1e3
+
+
+def report_chunked(name: str, res: dict, ref_log, k: int, **extra) -> dict:
+    """The fused run against the per-step run of the same path: identical
+    accelerate and sub_iters sequences, every loss within PARITY_TIGHT
+    relative; ms/step of both after the first chunk."""
+    log = res["log"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(log.losses, ref_log.losses))
+    same = (log.accelerated == ref_log.accelerated[:len(log.accelerated)]
+            and log.sub_iters == ref_log.sub_iters[:len(log.sub_iters)])
+    out = dict(chunk_steps=k, steps=res["steps"], losses=log.losses,
+               accelerated=log.accelerated, sub_iters=log.sub_iters,
+               same_decisions=same, max_rel_loss_diff=rel,
+               bit_exact=log.losses == ref_log.losses[:len(log.losses)],
+               ms_per_step_after_first_chunk=ms_after(log, k),
+               per_step_ms_after_first_chunk=ms_after(ref_log, k),
+               capture_seconds=res["capture_seconds"],
+               peak_mem_gib=res["peak_bytes"] / 2**30,
+               peak_reserved_gib=res["peak_reserved"] / 2**30, **extra)
+    emit(name, **out)
+    if len(log.losses) != len(ref_log.losses) or not same:
+        raise SystemExit(f"{name}: the fused run's decisions differ from the "
+                         f"per-step run's")
+    if not rel <= PARITY_TIGHT:
+        raise SystemExit(f"{name}: losses differ by {rel:.3g} relative")
+    return out
+
+
+def phase_chunked(model: str, per_step: dict, k: int = CHUNK):
+    from repro_torch.launch import train as launcher
+    args = launcher.parse_args(train_args(model) + ["--chunk-steps", str(k)])
+    res = launcher.run(args, fused=True)
+    out = report_chunked("chunked" + SUFFIX[model] + ("" if k == CHUNK else f"_k{k}"),
+                         res, per_step["log"], k, config=zoo_base(model).name)
+    if model == "transformer" and not sum(out["sub_iters"]):
+        raise SystemExit("no Alg. 2 trip ran inside the graph")
+    return out["ms_per_step_after_first_chunk"]
+
+
+def zoo_base(model: str):
+    from repro_torch.configs import zoo_config as zc
+    return zc(model, "base")
+
+
+def chunk_profiler(cycles: int):
+    """(profiler, rows): a torch.profiler that records each chunk as a
+    cycle of its own (the chunk loops step it after each chunk) and appends
+    that cycle's ``device_rows`` to ``rows``. One window over three chunks
+    of a zoo path holds about 80,000 device events, and CUPTI then drops
+    records (433 of 448 ``flash_fwd`` in one such window on an H100); one
+    chunk, about 27,000, loses none."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    rows = []
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   schedule=schedule(wait=0, warmup=0, active=1, repeat=cycles),
+                   on_trace_ready=lambda p: rows.append(device_rows(p)))
+    return prof, rows
+
+
+def profile_window(name: str, res: dict, cycles: list, expect: dict,
+                   wall_s: float, ms_per_step: float):
+    """Device time and the port's kernels (the first device kernel of each
+    wrapper) over the profiled chunks. The busy share is that device time
+    over ``wall_s``, the host time of the profiled chunks themselves (the
+    profiler's own work between chunks left out); ``ms_per_step``, the
+    wall time a step of the same run unprofiled, is printed beside it."""
+    merged = {}
+    for rows in cycles:
+        for t, key, c in rows:
+            tt, cc = merged.get(key, (0.0, 0))
+            merged[key] = (tt + t, cc + c)
+    rows = sorted(((t, key, c) for key, (t, c) in merged.items()), reverse=True)
+    busy = sum(r[0] for r in rows) / 1e6
+    counts = {n: sum(c for _, key, c in rows if keys[0] in key)
+              for n, keys in DEVICE_KERNELS.items()}
+    steps = res["steps"]
+    emit(name, steps=steps, chunk_steps=res["chunk_steps"], cycles=len(cycles),
+         sub_iters=int(res["state"].sub_iters), device_busy_s=busy,
+         profiled_chunks_s=wall_s, busy_share=busy / wall_s,
+         device_ms_per_step=busy / steps * 1e3,
+         unprofiled_ms_per_step=ms_per_step, launches=counts,
+         expected_launches=expect,
+         top=[{"name": key[:90], "ms_per_step": t / 1e3 / steps, "calls": c,
+               "share": t / 1e6 / busy} for t, key, c in rows[:12]])
+    if len(cycles) != steps // res["chunk_steps"]:
+        raise SystemExit(f"{name}: {len(cycles)} profiled chunks of "
+                         f"{steps // res['chunk_steps']}")
+    if counts != expect:
+        raise SystemExit(f"{name}: device launches {counts} != expected {expect}")
+
+
+def phase_profile_chunked(path: str, per_eval: dict, ms_per_step: float):
+    """Three chunks of the fused engine under torch.profiler, one profiler
+    cycle a chunk, in a process of its own (this script with
+    ``--profile-chunked``): in a process that had run an earlier profiler
+    session and other graphs, CUPTI reported one or two ``flash_fwd``
+    executions more than the graphs launch (per-chunk counts of 161 and
+    162 where the captured graph holds 160; the same run in a fresh
+    process reports 160)."""
+    subprocess.run([sys.executable, os.path.abspath(__file__), "--profile-chunked",
+                    path, json.dumps({"per_eval": per_eval, "ms_per_step": ms_per_step})],
+                   check=True)
+
+
+def profile_chunked_child(path: str, spec: dict):
+    """The profiled run of ``phase_profile_chunked``, entered after the
+    warm-up and the capture. A kernel inside an IF node that did not fire
+    does not run, so each wrapper's kernel runs evaluations ×
+    per-evaluation times (the CNN runs none of them)."""
+    prof, cycles = chunk_profiler(3)
+    stepped = []                   # seconds in the profiler's own step()
+    step = prof.step
+
+    def timed_step():
+        t0 = time.perf_counter()
+        step()
+        stepped.append(time.perf_counter() - t0)
+
+    prof.step = timed_step
+    if path == "cnn":
+        res = run_cnn_chunked(steps=3 * CHUNK, profiler=prof)
+        name = "profile_chunked_cnn"
+    else:
+        from repro_torch.launch import train as launcher
+        args = launcher.parse_args(train_args(path, steps=3 * CHUNK)
+                                   + ["--chunk-steps", str(CHUNK)])
+        res = launcher.run(args, fused=True, profiler=prof)
+        name = "profile_chunked" + SUFFIX[path]
+    evals = res["steps"] + int(res["state"].sub_iters)
+    profile_window(name, res, cycles,
+                   {n: spec["per_eval"][n] * evals for n in DEVICE_KERNELS},
+                   res["seconds"] - sum(stepped), spec["ms_per_step"])
+
+
+CNN_BATCH, CNN_STEPS, CNN_LR = 256, 24, 0.01
+
+
+def cnn_setup():
+    """``alexnet-small`` at its published width on 2048 images of
+    ``make_classification(0, 2048, 64, 3, 1000, noise=0.5,
+    difficulty=2.0)`` (8 FCPR batches of 256, 100.7 MB), random init, f32
+    without TF32. cuDNN runs its deterministic algorithms: with the default
+    ones two per-step runs of the same 24 steps differ by about 6e-5
+    relative at the last step, so the two engines could not be held to
+    each other bit for bit."""
+    from repro_torch.configs import ALEXNET_SMALL
+    from repro_torch.core import ISGDConfig
+    from repro_torch.data import FCPRSampler, make_classification
+    from repro_torch.models import CNN, cnn_loss_fn, init_cnn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    data = make_classification(0, 2048, 64, 3, 1000, noise=0.5, difficulty=2.0)
+    sampler = FCPRSampler(data, batch_size=CNN_BATCH, seed=1)
+    module = init_cnn(CNN(ALEXNET_SMALL, device="cuda"), seed=0)
+    icfg = ISGDConfig(n_batches=sampler.n_batches, k_sigma=1.0, stop=3)
+    return module, (lambda b: cnn_loss_fn(module, b)), sampler, icfg
+
+
+def phase_train_cnn() -> dict:
+    from repro_torch.core import constant_lr
+    from repro_torch.models.cnn import l2_sum
+    from repro_torch.optim import momentum
+    from repro_torch.train import train
+    module, loss_fn, sampler, icfg = cnn_setup()
+    params = list(module.parameters())
+    with torch.no_grad():
+        l2 = float(0.5 * 1e-4 * l2_sum(module))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, state, log = train(params, loss_fn, momentum(0.9), sampler,
+                               steps=CNN_STEPS, isgd_cfg=icfg,
+                               lr_fn=constant_lr(CNN_LR))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    expect1 = math.log(module.cfg.num_classes) + l2
+    emit("train_cnn", config=module.cfg.name, params=sum(p.numel() for p in params),
+         batch=CNN_BATCH, steps=CNN_STEPS, losses=log.losses,
+         accelerated=state.accel_count, sub_iters=state.sub_iters,
+         ms_per_step=dt / CNN_STEPS * 1e3, ms_per_step_after_first=ms_after(log, 1),
+         ms_per_step_after_first_chunk=ms_after(log, CHUNK),
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+         step1_loss=log.losses[0], step1_expected=expect1, l2_term=l2)
+    if not all(math.isfinite(x) for x in log.losses):
+        raise SystemExit(f"non-finite CNN loss: {log.losses}")
+    if abs(log.losses[0] - expect1) > 1.0:
+        raise SystemExit(f"CNN step-1 loss {log.losses[0]} is not near "
+                         f"ln 1000 + L2 = {expect1:.3f}")
+    return {"log": log}
+
+
+def run_cnn_chunked(steps: int = CNN_STEPS, profiler=None) -> dict:
+    """The CNN through ``make_chunked_train_step`` over a ``DeviceRing``;
+    warm-up and capture before the clock, ``profiler`` around the steps."""
+    import contextlib
+
+    from repro_torch.core import constant_lr
+    from repro_torch.data import DeviceRing
+    from repro_torch.launch.train import _drive_chunks
+    from repro_torch.optim import momentum
+    from repro_torch.train import make_chunked_train_step
+    module, loss_fn, sampler, icfg = cnn_setup()
+    ring = DeviceRing(sampler.epoch_arrays(), CNN_BATCH)
+    init_fn, chunk = make_chunked_train_step(loss_fn, momentum(0.9), icfg,
+                                             chunk_steps=CHUNK,
+                                             lr_fn=constant_lr(CNN_LR))
+    params = list(module.parameters())
+    state = init_fn(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    chunk.prepare(state, params, ring.arrays)
+    with profiler if profiler is not None else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        state, steps, log = _drive_chunks(chunk, state, params, ring, steps,
+                                          CHUNK, t0,
+                                          on_chunk=getattr(profiler, "step", None))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    return {"log": log, "state": state, "seconds": dt, "steps": steps,
+            "chunk_steps": CHUNK, "capture_seconds": chunk.capture_seconds,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "peak_reserved": torch.cuda.max_memory_reserved()}
+
+
+def phase_chunked_cnn(per_step: dict) -> float:
+    out = report_chunked("chunked_cnn", run_cnn_chunked(), per_step["log"],
+                         CHUNK, config="alexnet-small")
+    return out["ms_per_step_after_first_chunk"]
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+    if sys.argv[1:2] == ["--profile-chunked"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        return profile_chunked_child(sys.argv[2], json.loads(sys.argv[3]))
     smi = phase_device()
     phase_build()
     main_checks = phase_checks()
@@ -574,6 +843,13 @@ def main():
         train[model] = phase_train(model)
         phase_parity(model, train[model]["step1_loss"])
         phase_profile(model, main_checks)
+        ms = phase_chunked(model, train[model])
+        if model == "transformer":
+            phase_chunked(model, train[model], k=1)
+        phase_profile_chunked(model, train[model]["per_eval"], ms)
+    cnn = phase_train_cnn()
+    phase_profile_chunked("cnn", dict.fromkeys(DEVICE_KERNELS, 0),
+                          phase_chunked_cnn(cnn))
     kernels = []
     for name, path, replaces in (
             ("fused_xent", "transformer",

@@ -1,5 +1,5 @@
-"""Move dense-transformer and SSM-stack weights between the JAX tree and
-the port.
+"""Move dense-transformer, SSM-stack and CNN weights between the JAX tree
+and the port.
 
 The JAX tree (``repro.models.transformer.init_params``, as numpy arrays) is
 ``{"embed", "final_norm", "head"?, "prefix": [], "blocks": (block,)}`` with
@@ -10,6 +10,12 @@ mixer: {in_proj, conv_w, conv_b, A_log, D, dt_bias, gnorm, out_proj},
 mlp: {}}`` for an SSM layer without one (no ``ln2``). Both sides use the
 ``x @ W`` layout, so every leaf is copied as it is. bf16 leaves travel as
 their raw 16-bit patterns.
+
+The CNN tree (``repro.models.cnn.init_cnn``) is ``{"convs": [{w: (kh, kw,
+in, out), b}], "dense": [{w: (in, out), b}]}``. The port keeps conv
+weights as (out, in, kh, kw), so ``cnn_from_jax``/``cnn_to_jax`` permute
+them; every other leaf, the first dense weight included, is copied as it
+is (the port's CNN flattens in the reference's H, W, C order).
 """
 from __future__ import annotations
 
@@ -91,3 +97,31 @@ def params_to_jax(state_dict, cfg) -> dict:
         blocks.append(bp)
     tree["blocks"] = tuple(blocks)
     return tree
+
+
+def cnn_from_jax(tree) -> dict:
+    """JAX CNN tree (numpy leaves) -> the port's ``CNN`` ``state_dict``."""
+    sd = {}
+    for i, c in enumerate(tree["convs"]):
+        sd[f"convs.{i}.w"] = _to_torch(np.transpose(np.asarray(c["w"]),
+                                                    (3, 2, 0, 1)))
+        sd[f"convs.{i}.b"] = _to_torch(c["b"])
+    for i, d in enumerate(tree["dense"]):
+        sd[f"dense.{i}.w"] = _to_torch(d["w"])
+        sd[f"dense.{i}.b"] = _to_torch(d["b"])
+    return sd
+
+
+def cnn_to_jax(state_dict) -> dict:
+    """The port's ``CNN`` ``state_dict`` -> JAX CNN tree (numpy leaves)."""
+    def count(prefix):
+        return len({k.split(".")[1] for k in state_dict
+                    if k.startswith(prefix + ".")})
+    convs = [{"w": np.transpose(_to_numpy(state_dict[f"convs.{i}.w"]),
+                                (2, 3, 1, 0)).copy(),
+              "b": _to_numpy(state_dict[f"convs.{i}.b"])}
+             for i in range(count("convs"))]
+    dense = [{"w": _to_numpy(state_dict[f"dense.{i}.w"]),
+              "b": _to_numpy(state_dict[f"dense.{i}.b"])}
+             for i in range(count("dense"))]
+    return {"convs": convs, "dense": dense}

@@ -12,9 +12,18 @@ reduction is the identity, so it has no counterpart here). Each iteration:
      post-base-update weights via ε/(2 n_w)·‖w − w0‖².
 
 The JAX package branches on the device (``lax.cond`` around a
-``lax.while_loop``). This per-step port reads the predicate on the host:
-one ``.item()`` per step, and one more per subproblem trip, since each trip
-tests the ψ of the previous evaluation. Parameters are updated in place.
+``lax.while_loop``). The per-step form here (``isgd_step``, the eager
+engine) reads the predicate on the host: one ``.item()`` per step, and one
+more per subproblem trip, since each trip tests the ψ of the previous
+evaluation. Parameters are updated in place.
+
+The device form (``isgd_step_device``, the chunked engine's step) reads
+nothing back: its counters are 0-d int32 tensors, its queue and Alg. 2
+buffers are updated in place, and Alg. 2 is ``stop`` unrolled trips, trip
+i running where ``live_i = live_{i-1} & (ψ_{i-1} > limit)`` with
+``live_0 = accelerate``. Each conditional part goes through ``run_if``:
+while the chunked engine builds its CUDA graph, an IF node of the graph,
+elsewhere a host ``if``, so the CPU runs the same logic.
 """
 from __future__ import annotations
 
@@ -33,6 +42,29 @@ class ISGDState(NamedTuple):
     iter: int                    # global iteration counter
     accel_count: int             # how many batches were accelerated
     sub_iters: int               # total subproblem iterations spent
+
+
+class TripBuffers(NamedTuple):
+    """The device form's Alg. 2 buffers, allocated once: all that a trip
+    reads besides the params and the batch (an IF body may read only
+    tensors that outlive the step)."""
+    w0: list                     # weights on entry (after the base update)
+    psi: torch.Tensor            # ψ of the latest evaluation, f32
+    live: torch.Tensor           # bool: the current trip runs
+    limit: torch.Tensor          # this step's control limit, f32
+    zeta: torch.Tensor           # this step's Alg. 2 step (the LR), f32
+
+
+class DeviceISGDState(NamedTuple):
+    """``ISGDState`` of the device form: the counters are 0-d int32 tensors
+    and every tensor is updated in place, so a CUDA graph captured over it
+    stays valid; ``trips`` is None for the consistent step."""
+    base: tuple
+    queue: control.LossQueue
+    iter: torch.Tensor
+    accel_count: torch.Tensor
+    sub_iters: torch.Tensor
+    trips: TripBuffers | None
 
 
 @dataclass(frozen=True)
@@ -136,3 +168,127 @@ def consistent_step(rule: UpdateRule, loss_and_grad: Callable, state, params,
                           accel_count=state.accel_count,
                           sub_iters=state.sub_iters)
     return new_state, params, metrics
+
+
+# ---------------------------------------------------------------------------
+# device form (the chunked engine)
+# ---------------------------------------------------------------------------
+def run_if(pred, body: Callable):
+    """Run ``body()`` where the 0-d bool tensor ``pred`` is true.
+
+    While the chunked engine builds its CUDA graph (a
+    ``kernels.graph_if.IfBodies`` pass), ``body`` becomes an IF node of the
+    graph: the device tests ``pred`` at each replay and the host reads
+    nothing. Elsewhere (the CPU, an eager run on the card) it is ``if
+    bool(pred)``."""
+    if pred.is_cuda:
+        from repro_torch.kernels import graph_if
+        bodies = graph_if.active()
+        if bodies is not None:
+            bodies.guard(pred, body)
+            return
+    if bool(pred):
+        body()
+
+
+def assign_(dst, src):
+    """Copy the tensors of ``src`` into those of ``dst`` (same structure),
+    skipping a tensor that already is its destination."""
+    if torch.is_tensor(dst):
+        if dst is not src:
+            dst.copy_(src)
+        return
+    for d, s in zip(dst, src):
+        assign_(d, s)
+
+
+def isgd_device_init(rule: UpdateRule, cfg: ISGDConfig, params, *,
+                     inconsistent: bool = True) -> DeviceISGDState:
+    dev = params[0].device
+    i32 = dict(dtype=torch.int32, device=dev)
+    trips = None
+    if inconsistent:
+        f32 = dict(dtype=torch.float32, device=dev)
+        trips = TripBuffers(w0=[torch.empty_like(w) for w in params],
+                            psi=torch.zeros((), **f32),
+                            live=torch.zeros((), dtype=torch.bool, device=dev),
+                            limit=torch.zeros((), **f32),
+                            zeta=torch.zeros((), **f32))
+    return DeviceISGDState(base=rule.init(params),
+                           queue=control.init_queue(cfg.n_batches, device=dev),
+                           iter=torch.zeros((), **i32),
+                           accel_count=torch.zeros((), **i32),
+                           sub_iters=torch.zeros((), **i32), trips=trips)
+
+
+def isgd_step_device(rule: UpdateRule, cfg: ISGDConfig,
+                     loss_and_grad: Callable, state: DeviceISGDState, params,
+                     batch, lr):
+    """``isgd_step`` with the accelerate branch and Alg. 2 on the device:
+    the same arithmetic in the same order, so its trajectory is the per-step
+    engine's bit for bit. Updates ``state`` and ``params`` in place and
+    returns them with the step's metrics (0-d tensors). The guarded parts
+    read ``state.trips``, the params and ``batch`` only, so ``batch`` must
+    outlive the step where it is captured."""
+    (loss, aux), grads = loss_and_grad(params, batch)
+    assign_(state.base, rule.apply(state.base, params, grads, lr))
+    del grads
+    assign_(state.queue, control.push(state.queue, loss))
+    limit = control.control_limit(state.queue, cfg.k_sigma)
+    accelerate = loss > limit
+
+    trips = state.trips
+    n_w = _param_count(params)
+    trips.psi.copy_(loss)
+    trips.live.copy_(accelerate)
+    trips.limit.copy_(limit)
+    zeta = cfg.zeta
+    if zeta is None:
+        zeta = trips.zeta
+        zeta.copy_(lr)
+
+    @torch.no_grad()
+    def enter():
+        for w0i, w in zip(trips.w0, params):
+            w0i.copy_(w)
+
+    def trip():
+        (psi, _), g = loss_and_grad(params, batch)
+        _proximal_update(params, g, trips.w0, psi - trips.limit, zeta,
+                         cfg.epsilon, n_w)
+        trips.psi.copy_(psi)
+
+    run_if(accelerate, enter)
+    used = torch.zeros((), dtype=torch.int32, device=loss.device)
+    for _ in range(cfg.stop):
+        trips.live.logical_and_(trips.psi > limit)
+        used += trips.live
+        run_if(trips.live, trip)
+
+    state.iter.add_(1)
+    state.accel_count.add_(accelerate)
+    state.sub_iters.add_(used)
+    metrics = {"loss": loss, "aux": aux,
+               "psi_bar": control.mean(state.queue),
+               "psi_std": control.std(state.queue),
+               "limit": limit, "accelerated": accelerate, "sub_iters": used}
+    return state, params, metrics
+
+
+def consistent_step_device(rule: UpdateRule, loss_and_grad: Callable,
+                           state: DeviceISGDState, params, batch, lr):
+    """``consistent_step`` in the device form (in place, tensor metrics)."""
+    (loss, aux), grads = loss_and_grad(params, batch)
+    assign_(state.base, rule.apply(state.base, params, grads, lr))
+    del grads
+    assign_(state.queue, control.push(state.queue, loss))
+    state.iter.add_(1)
+    metrics = {"loss": loss, "aux": aux,
+               "psi_bar": control.mean(state.queue),
+               "psi_std": control.std(state.queue),
+               "limit": control.control_limit(state.queue),
+               "accelerated": torch.zeros((), dtype=torch.bool,
+                                          device=loss.device),
+               "sub_iters": torch.zeros((), dtype=torch.int32,
+                                        device=loss.device)}
+    return state, params, metrics

@@ -1,4 +1,10 @@
-from repro_torch.data.fcpr import FCPRSampler
-from repro_torch.data.synthetic import make_lm_tokens
+from repro_torch.data.device_ring import (DeviceRing, PrefetchSampler,
+                                          ring_or_prefetch)
+from repro_torch.data.fcpr import ExplicitBatches, FCPRSampler
+from repro_torch.data.synthetic import (cifar_like, imagenet_like,
+                                        make_classification, make_lm_tokens,
+                                        mnist_like)
 
-__all__ = ["FCPRSampler", "make_lm_tokens"]
+__all__ = ["DeviceRing", "PrefetchSampler", "ring_or_prefetch",
+           "ExplicitBatches", "FCPRSampler", "cifar_like", "imagenet_like",
+           "make_classification", "make_lm_tokens", "mnist_like"]

@@ -1,8 +1,9 @@
 """Fixed-Cycle Pseudo-Random (FCPR) sampling, the paper's §3.4.
 
-A numpy copy of ``repro.data.fcpr.FCPRSampler`` (that module cannot be
-imported without jax). It draws from ``np.random.RandomState`` in the same
-order, so for the same seed the two samplers give identical batches.
+A numpy copy of ``repro.data.fcpr.FCPRSampler`` and ``ExplicitBatches``
+(that module cannot be imported without jax). It draws from
+``np.random.RandomState`` in the same order, so for the same seed the two
+samplers give identical batches.
 
 The dataset is permuted once and sliced into ``n_batches`` batches;
 iteration ``j`` takes batch ``j mod n_batches``, a fixed ring, which is what
@@ -52,8 +53,46 @@ class FCPRSampler:
         """t = j mod (n_d / n_b), the paper's fixed cycle."""
         return j % self.n_batches
 
+    def epoch_arrays(self) -> Dict[str, np.ndarray]:
+        """The whole permuted epoch (``n_batches * batch_size`` rows per
+        key) as C-contiguous arrays; batch t is rows [t*bs, (t+1)*bs). What
+        a ``DeviceRing`` uploads, once."""
+        return self.arrays
+
+    def epoch_nbytes(self) -> int:
+        """Host bytes of one permuted epoch (the ring's byte-budget check)."""
+        return sum(v.nbytes for v in self.arrays.values())
+
     def __call__(self, j: int) -> Dict[str, np.ndarray]:
         """Batch ``t = j mod n_b`` as contiguous leading-axis views."""
         t = self.batch_index(j)
         lo, hi = t * self.batch_size, (t + 1) * self.batch_size
         return {k: v[lo:hi] for k, v in self.arrays.items()}
+
+
+class ExplicitBatches:
+    """Pre-built batches cycled in fixed order (the Fig.1 controlled
+    experiments: single-class and i.i.d. batches)."""
+
+    def __init__(self, batches):
+        self.batches = list(batches)
+        self.n_batches = len(self.batches)
+        self.batch_size = len(next(iter(self.batches[0].values())))
+
+    def batch_index(self, j: int) -> int:
+        return j % self.n_batches
+
+    def epoch_arrays(self) -> Dict[str, np.ndarray]:
+        """The concatenated fixed cycle (batch t = rows [t*bs, (t+1)*bs)),
+        so a ``DeviceRing`` can take explicit batches too."""
+        keys = self.batches[0].keys()
+        return {k: np.ascontiguousarray(
+                    np.concatenate([np.asarray(b[k]) for b in self.batches]))
+                for k in keys}
+
+    def epoch_nbytes(self) -> int:
+        return sum(np.asarray(v).nbytes
+                   for b in self.batches for v in b.values())
+
+    def __call__(self, j: int):
+        return self.batches[self.batch_index(j)]

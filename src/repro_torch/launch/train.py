@@ -1,12 +1,22 @@
-"""Training launcher: the single-device per-step ISGD engine.
+"""Training launcher: the single-device ISGD engines, per-step and fused.
 
-Port of the per-step engine of ``repro.launch.train`` for the dense
+Port of the single-device engines of ``repro.launch.train`` for the dense
 (``--model transformer``) and Mamba2/SSD (``--model ssm``) entries of the
 ``paper_transformer`` zoo. It builds the model, draws the synthetic LM
 token stream (``make_lm_tokens(0, n_seqs, seq, vocab)``) into an FCPR ring
 (``seed=1``), and trains through ``repro_torch.train.train``, printing the
 JAX launcher's ``step N loss= psi_bar= limit= accel=`` lines and its
 ``done: ... accelerated= sub_iters=`` line.
+
+``--chunk-steps K`` (K > 1) runs the fused engine
+(``repro_torch.train.make_chunked_train_step``): the epoch lives on the
+device (``DeviceRing``), K steps run per host dispatch (on the card, K
+replays of a CUDA graph of one step, the accelerate branch and Alg. 2 in
+IF nodes), the step count rounds up to whole chunks and the last step of
+each chunk is printed. The warm-up and capture happen before the clock
+(``capture:`` line). ``--device-ring`` feeds the per-step engine from the
+device-resident ring (``ring_or_prefetch``: the ring if the epoch fits
+256 MiB, else a double-buffered prefetcher).
 
 The run is on the card unless ``--device cpu`` is given; without a CUDA
 device and without that flag it exits nonzero. With ``--kernels cuda`` on
@@ -19,23 +29,25 @@ the card the kernels are built before the clock starts.
       --kernels cuda --precision bf16 --batch 8 --seq 1024 --n-seqs 32 \\
       --steps 12 --k-sigma 1.0 --stop 3
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --tier tiny \\
-      --steps 6 --seq 64 --n-seqs 32 [--model ssm]
+      --steps 6 --seq 64 --n-seqs 32 [--model ssm] [--chunk-steps 4]
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import torch
 
 from repro_torch.configs import ZOO_MODELS, ZOO_TIERS, zoo_config
 from repro_torch.core import ISGDConfig, constant_lr
-from repro_torch.data import FCPRSampler, make_lm_tokens
+from repro_torch.data import (DeviceRing, FCPRSampler, make_lm_tokens,
+                              ring_or_prefetch)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import KERNEL_CHOICES, build
 from repro_torch.models import build_model
 from repro_torch.optim import RULES
-from repro_torch.train import train
+from repro_torch.train import TrainLog, make_chunked_train_step, train
 
 
 def parse_args(argv=None):
@@ -60,15 +72,30 @@ def parse_args(argv=None):
     ap.add_argument("--k-sigma", type=float, default=2.0)
     ap.add_argument("--stop", type=int, default=3)
     ap.add_argument("--n-seqs", type=int, default=64)
+    ap.add_argument("--chunk-steps", type=int, default=1,
+                    help="K>1 = fused engine: K ISGD steps per host dispatch "
+                         "over the device-resident FCPR ring (a CUDA graph of "
+                         "one step on the card; bit-exact with per-step)")
+    ap.add_argument("--device-ring", action="store_true",
+                    help="per-step engine fed from the device-resident FCPR "
+                         "ring instead of host batches (implied by "
+                         "--chunk-steps > 1)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; the CPU only when named")
     return ap.parse_args(argv)
 
 
-def run(args) -> dict:
-    """Train as ``args`` say. -> {"log", "state", "seconds", "steps",
-    "peak_bytes", "params"}."""
+def run(args, *, fused=None, profiler=None) -> dict:
+    """Train as ``args`` say. ``fused`` (default ``--chunk-steps > 1``)
+    picks the chunked engine, so that K = 1 can run through it too;
+    ``profiler`` (a ``torch.profiler.profile``) is entered around the
+    timed steps only, and stepped after each chunk of the chunked engine.
+    -> {"log", "state", "seconds", "steps", "peak_bytes",
+    "peak_reserved", "params", "capture_seconds", "chunk_steps"}."""
     dev = resolve_device(args.device)
+    k = args.chunk_steps
+    if fused is None:
+        fused = k > 1
     cfg = zoo_config(args.model, args.tier)
     dtype = torch.float32 if args.precision == "f32" else torch.bfloat16
     model = build_model(cfg, kernels=args.kernels, param_dtype=dtype,
@@ -76,7 +103,8 @@ def run(args) -> dict:
     model.init(0)
     params = model.params()
     n_params = sum(p.numel() for p in params)
-    print(f"arch={cfg.name} engine=per-step device={dev} "
+    print(f"arch={cfg.name} engine={'chunked' if fused else 'per-step'} "
+          f"chunk_steps={k if fused else 1} device={dev} "
           f"kernels={args.kernels} precision={args.precision} "
           f"remat={args.remat}")
     print(f"params: {n_params/1e6:.1f}M")
@@ -87,24 +115,72 @@ def run(args) -> dict:
     sampler = FCPRSampler(data, batch_size=args.batch, seed=1)
     icfg = ISGDConfig(n_batches=sampler.n_batches, k_sigma=args.k_sigma,
                       stop=args.stop)
+    rule, lr_fn = RULES[args.rule](), constant_lr(args.lr)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    params, state, log = train(params, model.loss_fn, RULES[args.rule](),
-                               sampler, steps=args.steps,
-                               inconsistent=not args.consistent,
-                               isgd_cfg=icfg, lr_fn=constant_lr(args.lr),
-                               log_every=5)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    dt = time.perf_counter() - t0
-    print(f"done: {args.steps} steps in {dt:.1f}s "
-          f"({dt/args.steps*1e3:.0f} ms/step) "
-          f"accelerated={state.accel_count} sub_iters={state.sub_iters}")
-    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
-    return {"log": log, "state": state, "seconds": dt, "steps": args.steps,
-            "peak_bytes": peak, "params": n_params}
+    capture = 0.0
+    if fused:
+        ring = DeviceRing(sampler.epoch_arrays(), args.batch, device=dev)
+        init_fn, chunk_fn = make_chunked_train_step(
+            model.loss_fn, rule, icfg, chunk_steps=k,
+            inconsistent=not args.consistent, lr_fn=lr_fn)
+        state = init_fn(params)
+        chunk_fn.prepare(state, params, ring.arrays)
+        capture = chunk_fn.capture_seconds
+        if dev.type == "cuda":
+            print(f"capture: {capture:.1f}s (warm-up and graph capture)")
+    else:
+        feed = sampler
+        if args.device_ring:
+            feed = ring_or_prefetch(sampler, device=dev)
+            print(f"input: {type(feed).__name__}")
+    with profiler if profiler is not None else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        if fused:
+            state, steps, log = _drive_chunks(
+                chunk_fn, state, params, ring, args.steps, k, t0,
+                on_chunk=getattr(profiler, "step", None))
+        else:
+            steps = args.steps
+            params, state, log = train(params, model.loss_fn, rule, feed,
+                                       steps=steps,
+                                       inconsistent=not args.consistent,
+                                       isgd_cfg=icfg, lr_fn=lr_fn,
+                                       log_every=5)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - t0
+    print(f"done: {steps} steps in {dt:.1f}s "
+          f"({dt/steps*1e3:.0f} ms/step) "
+          f"accelerated={int(state.accel_count)} "
+          f"sub_iters={int(state.sub_iters)}")
+    cuda = dev.type == "cuda"
+    return {"log": log, "state": state, "seconds": dt, "steps": steps,
+            "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda else None,
+            "peak_reserved": torch.cuda.max_memory_reserved(dev) if cuda else None,
+            "params": n_params, "capture_seconds": capture,
+            "chunk_steps": k if fused else 1}
+
+
+def _drive_chunks(chunk_fn, state, params, ring, steps: int, k: int, t0,
+                  on_chunk=None):
+    """Run ``steps`` (rounded up to whole chunks) through the fused engine,
+    printing the last step of each chunk; ``TrainLog.extend`` is the one
+    host read per chunk, then ``on_chunk()`` if given.
+    -> (state, steps run, log)."""
+    log = TrainLog()
+    j = 0
+    while j < steps:
+        state, params, ms = chunk_fn(state, params, ring.arrays, j)
+        log.extend(ms, time.perf_counter() - t0)
+        j += k
+        print(f"step {j:4d} loss={log.losses[-1]:.4f} "
+              f"psi_bar={log.psi_bar[-1]:.4f} limit={log.limits[-1]:.4f} "
+              f"accel={log.accelerated[-1]}", flush=True)
+        if on_chunk is not None:
+            on_chunk()
+    return state, j, log
 
 
 def main(argv=None) -> dict:

@@ -1,0 +1,206 @@
+"""Fused multi-step training engine: K ISGD steps per host dispatch.
+
+Port of ``repro.train.chunked``. The per-step engine pays, every
+iteration, Python dispatch of the model, autograd and optimizer, a host
+batch copy, and one host read of the accelerate predicate (plus one per
+Alg. 2 trip). Here batches come from a device-resident FCPR ring
+(``repro_torch.data.DeviceRing``: batch identity is ``j mod n_b``, so
+selection is a gather by an index that lives on the device) and the step is
+the device form of Alg. 1 (``core.isgd.isgd_step_device``): queue push,
+control limit, accelerate branch, ``stop`` guarded Alg. 2 trips and the
+loss-driven LR, with nothing read back.
+
+On a CUDA device the engine runs one step eagerly on a side stream (the
+warm-up: every kernel, cuBLAS/cuDNN handle and lazily built table is
+reached), recording each guarded part (the Alg. 2 trips) as a graph of its
+own instead of running it (``kernels.graph_if.IfBodies``), restores the
+state, and captures one step into a ``torch.cuda.CUDAGraph``: the batch
+gather, the loss and gradient, the base update, the push and the limit,
+the trips as IF nodes holding the recorded graphs, the metrics row written
+at a device counter and the counters' increments. A chunk is K
+replays and one host read of the (K,) metrics (``TrainLog.extend``). The
+graph holds raw device addresses, so params, optimizer state, queue, ring
+and batch buffer are static tensors updated in place; intermediates live in
+the graph's private pool. Without CUDA-graph conditional nodes the engine
+raises: it never falls back to host reads. On a CPU device the same body
+runs in a plain loop.
+
+Semantics are bit-exact with the per-step engine: the body does the
+per-step arithmetic in the same order, and ``lr_fn`` reads ψ̄ from the
+queue BEFORE the step pushes its own loss, as ``make_step_core`` does.
+"""
+from __future__ import annotations
+
+import time
+from typing import Callable
+
+import torch
+
+from repro_torch.core import control
+from repro_torch.core.isgd import (ISGDConfig, consistent_step_device,
+                                   isgd_device_init, isgd_step_device)
+from repro_torch.kernels import graph_if
+from repro_torch.optim.base import UpdateRule
+from repro_torch.train.trainer import make_loss_and_grad
+
+# the stacked metrics of a chunk, with their dtypes
+METRICS = {"loss": torch.float32, "aux": torch.float32,
+           "psi_bar": torch.float32, "psi_std": torch.float32,
+           "limit": torch.float32, "accelerated": torch.bool,
+           "sub_iters": torch.int32}
+
+
+def _tensors(tree):
+    if torch.is_tensor(tree):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+
+
+def make_device_step(loss_fn: Callable, rule: UpdateRule, isgd_cfg: ISGDConfig,
+                     *, inconsistent: bool = True, lr_fn: Callable):
+    """``(init_fn, step_fn)`` of the device form. ``init_fn(params)`` ->
+    ``DeviceISGDState``; ``step_fn(state, params, batch)`` -> ``(state,
+    params, metrics)``, updating in place, with the LR read from ψ̄ before
+    the push."""
+    lg = make_loss_and_grad(loss_fn)
+
+    def init_fn(params):
+        return isgd_device_init(rule, isgd_cfg, params,
+                                inconsistent=inconsistent)
+
+    def step_fn(state, params, batch):
+        lr = lr_fn(control.mean(state.queue))
+        if inconsistent:
+            return isgd_step_device(rule, isgd_cfg, lg, state, params, batch,
+                                    lr)
+        return consistent_step_device(rule, lg, state, params, batch, lr)
+
+    return init_fn, step_fn
+
+
+class ChunkFn:
+    """``chunk_fn(state, params, ring_arrays, j0) -> (state, params,
+    stacked)``: ``chunk_steps`` steps from global step ``j0``, batch t =
+    rows ``[t*bs, (t+1)*bs)`` of ``ring_arrays``; ``stacked`` holds (K,)
+    tensors on the device. ``prepare`` does the warm-up and the capture
+    (on CUDA) ahead of the first chunk; it is redone only for other
+    tensors. ``capture_seconds`` is the time it took."""
+
+    def __init__(self, step_fn: Callable, n_batches: int, chunk_steps: int):
+        if chunk_steps < 1:
+            raise ValueError("chunk_steps must be >= 1")
+        self.step_fn = step_fn
+        self.n_batches = n_batches
+        self.chunk_steps = chunk_steps
+        self.graph = None
+        self.capture_seconds = 0.0
+        self._key = None
+        self._refs = None
+
+    def _allocate(self, ring_arrays, device):
+        rows = next(iter(ring_arrays.values())).shape[0]
+        bs = rows // self.n_batches
+        self.batch = {k: torch.empty((bs, *v.shape[1:]), dtype=v.dtype,
+                                     device=device)
+                      for k, v in ring_arrays.items()}
+        self.offsets = torch.arange(bs, device=device)
+        self.j = torch.zeros((), dtype=torch.int64, device=device)
+        self.row = torch.zeros((), dtype=torch.int64, device=device)
+        self.out = {k: torch.zeros((self.chunk_steps,), dtype=dt,
+                                   device=device)
+                    for k, dt in METRICS.items()}
+
+    def _body(self, state, params, ring_arrays):
+        """One step: gather batch ``j mod n_b``, step, write the metrics at
+        row ``row``, advance both counters. Nothing is read back."""
+        bs = self.offsets.shape[0]
+        idx = torch.remainder(self.j, self.n_batches) * bs + self.offsets
+        for k, v in ring_arrays.items():
+            torch.index_select(v, 0, idx, out=self.batch[k])
+        _, _, metrics = self.step_fn(state, params, self.batch)
+        r = self.row.reshape(1)
+        for k, buf in self.out.items():
+            buf.index_put_((r,), metrics[k].reshape(1).to(buf.dtype))
+        self.j.add_(1)
+        self.row.add_(1)
+
+    def prepare(self, state, params, ring_arrays):
+        live = list(_tensors((state, params)))
+        static = live + list(_tensors(ring_arrays))
+        key = tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in static)
+        if key == self._key:
+            return
+        device = params[0].device
+        self._allocate(ring_arrays, device)
+        self.graph = None
+        if device.type == "cuda":
+            graph_if.require()
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            with torch.no_grad():    # no autograd graph may outlive this
+                saved = [t.clone() for t in live]
+            bodies = graph_if.IfBodies(device)
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with bodies.recording(), torch.cuda.stream(side):
+                self._body(state, params, ring_arrays)
+            torch.cuda.current_stream(device).wait_stream(side)
+            with torch.no_grad():
+                for t, s in zip(live, saved):
+                    t.copy_(s)
+            del saved
+            graph = torch.cuda.CUDAGraph()
+            with bodies.splicing(), torch.cuda.graph(graph):
+                self._body(state, params, ring_arrays)
+            torch.cuda.synchronize(device)
+            self.graph = graph
+            self.capture_seconds = time.perf_counter() - t0
+        self._key, self._refs = key, static
+
+    def __call__(self, state, params, ring_arrays, j0: int):
+        self.prepare(state, params, ring_arrays)
+        self.j.fill_(int(j0))
+        self.row.zero_()
+        for _ in range(self.chunk_steps):
+            if self.graph is not None:
+                self.graph.replay()
+            else:
+                self._body(state, params, ring_arrays)
+        return state, params, {k: v.clone() for k, v in self.out.items()}
+
+
+def chunk_over_ring(step_fn: Callable, n_batches: int,
+                    chunk_steps: int) -> ChunkFn:
+    """Wrap a device-form ``step_fn(state, params, batch) -> (state,
+    params, metrics)`` into ``chunk_fn(state, params,
+    ring_arrays, j0) -> (state, params, stacked)`` over the FCPR ring
+    (``ring_arrays``: a ``DeviceRing``'s ``.arrays``)."""
+    return ChunkFn(step_fn, n_batches, chunk_steps)
+
+
+def make_chunked_train_step(loss_fn: Callable, rule: UpdateRule,
+                            isgd_cfg: ISGDConfig, *, chunk_steps: int,
+                            inconsistent: bool = True,
+                            lr_fn: Callable = None):
+    """``(init_fn, chunk_fn)`` of the single-device fused engine.
+    ``lr_fn`` is required: inside a chunk the LR is derived on the device
+    from the previous step's queue; there is no host between steps to pass
+    one. ``init_fn`` raises on CUDA params where conditional nodes are
+    missing."""
+    if lr_fn is None:
+        raise ValueError("the chunked engine needs lr_fn (no per-step host)")
+    init_dev, step_fn = make_device_step(loss_fn, rule, isgd_cfg,
+                                         inconsistent=inconsistent,
+                                         lr_fn=lr_fn)
+
+    def init_fn(params):
+        if params[0].device.type == "cuda":
+            graph_if.require()
+        return init_dev(params)
+
+    return init_fn, chunk_over_ring(step_fn, isgd_cfg.n_batches, chunk_steps)

@@ -70,8 +70,10 @@ def make_train_step(loss_fn: Callable, rule: UpdateRule, isgd_cfg: ISGDConfig,
 @dataclass
 class TrainLog:
     """Per-step training record. ``wall[i]`` is seconds since the run's t0
-    at the step's end; every step already syncs once on the accelerate
-    predicate, so the walls are completion times."""
+    at the step's end. A per-step run syncs once a step on the accelerate
+    predicate, so its walls are completion times (``wall_est`` False); the
+    steps of one fused chunk (``extend``) all get the chunk's end and are
+    marked ``wall_est`` True: estimates, not per-step times."""
 
     losses: list = field(default_factory=list)
     limits: list = field(default_factory=list)
@@ -80,8 +82,10 @@ class TrainLog:
     accelerated: list = field(default_factory=list)
     sub_iters: list = field(default_factory=list)
     wall: list = field(default_factory=list)
+    wall_est: list = field(default_factory=list)   # True = estimated wall
 
-    def append(self, metrics: Dict[str, Any], wall: float):
+    def append(self, metrics: Dict[str, Any], wall: float, *,
+               wall_estimated: bool = False):
         self.losses.append(float(metrics["loss"]))
         self.limits.append(float(metrics["limit"]))
         self.psi_bar.append(float(metrics["psi_bar"]))
@@ -89,13 +93,27 @@ class TrainLog:
         self.accelerated.append(bool(metrics["accelerated"]))
         self.sub_iters.append(int(metrics["sub_iters"]))
         self.wall.append(wall)
+        self.wall_est.append(bool(wall_estimated))
+
+    def extend(self, stacked: Dict[str, Any], wall: float):
+        """Take one chunk of the fused engine: ``stacked`` holds (K,)
+        metric tensors, fetched here in ONE host transfer (f64 holds each
+        f32, bool and int32 value exactly). Every step gets the chunk's
+        end ``wall`` and ``wall_est`` True."""
+        keys = [k for k in stacked if k != "aux"]
+        host = torch.stack([stacked[k].to(torch.float64)
+                            for k in keys]).cpu().numpy()
+        for i in range(host.shape[1]):
+            self.append({k: host[r, i] for r, k in enumerate(keys)}, wall,
+                        wall_estimated=True)
 
 
 def train(params, loss_fn, rule, sampler, *, steps: int, lr=0.01,
           inconsistent: bool = True, isgd_cfg: Optional[ISGDConfig] = None,
           lr_fn: Callable = None, log_every: int = 0):
-    """Host loop over FCPR batches: each numpy batch is copied to the
-    params' device. Prints step 1 and every ``log_every``-th step.
+    """Host loop over FCPR batches: each batch (numpy arrays, or tensors
+    from a ``DeviceRing`` or ``PrefetchSampler``) is moved to the params'
+    device. Prints step 1 and every ``log_every``-th step.
     Returns (params, state, log)."""
     if isgd_cfg is None:
         isgd_cfg = ISGDConfig(n_batches=sampler.n_batches)
@@ -108,7 +126,7 @@ def train(params, loss_fn, rule, sampler, *, steps: int, lr=0.01,
     log = TrainLog()
     t0 = time.perf_counter()
     for j in range(steps):
-        batch = {k: torch.from_numpy(v).to(dev) for k, v in sampler(j).items()}
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in sampler(j).items()}
         state, params, metrics = step_fn(state, params, batch)
         log.append(metrics, time.perf_counter() - t0)
         if log_every and (j == 0 or (j + 1) % log_every == 0):

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card, against their plain versions.
+"""The port's CUDA kernels on the card, against their plain versions, and
+the chunked engine's CUDA graph against the eager per-step engine.
 
 Every test here needs an NVIDIA GPU (``cuda`` marker) and skips without
 one. The file imports neither jax nor the JAX package, and runs on a
@@ -284,3 +285,150 @@ def _kernels_match_reference(cfg):
                                rtol=1e-5, atol=0)
     for a, b in zip(out["cuda"][1], out["reference"][1]):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * float(b.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# the chunked engine: CUDA graph (IF nodes) against the eager per-step engine
+# ---------------------------------------------------------------------------
+def _tiny_zoo(model):
+    from repro_torch.data import make_lm_tokens
+    cfg = zoo_config(model, "tiny")
+    m = build_model(cfg, kernels="cuda", param_dtype=torch.float32)
+    data = make_lm_tokens(0, 8, 64, cfg.vocab_size)
+    return m.init, m.loss_fn, m.params, data, 2, dict(k_sigma=-3.0, stop=3)
+
+
+def _lenet8x8():
+    from repro_torch.configs import CNNConfig, ConvSpec
+    from repro_torch.data import make_classification
+    from repro_torch.models import CNN, cnn_loss_fn, init_cnn
+    cfg = CNNConfig(name="lenet-8x8", image_size=8, channels=1,
+                    num_classes=10,
+                    convs=(ConvSpec(4, 3, pool=2), ConvSpec(8, 3, pool=2)),
+                    hidden=(24,))
+    module = CNN(cfg)
+    data = make_classification(0, 64, 8, 1, 10, noise=0.2, class_spread=3.0)
+    return (lambda seed: init_cnn(module, seed),
+            lambda b: cnn_loss_fn(module, b),
+            lambda: list(module.parameters()), data, 8,
+            dict(k_sigma=1.5, stop=3, zeta=0.02))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["transformer", "ssm", "lenet-8x8"])
+def test_chunked_graph_matches_eager(cuda, model):
+    """16 steps (K = 4) of the CUDA-graph engine against the eager
+    per-step engine from the same init on the same card: the same
+    accelerate and sub_iters sequences, losses within 1e-5 relative (f32),
+    and Alg. 2 trips taken inside the graph."""
+    from repro_torch.core import ISGDConfig, constant_lr
+    from repro_torch.data import DeviceRing, FCPRSampler
+    from repro_torch.optim import momentum
+    from repro_torch.train import (TrainLog, make_chunked_train_step,
+                                   make_train_step)
+    init, loss_fn, params_of, data, bs, kw = (
+        _lenet8x8() if model == "lenet-8x8" else _tiny_zoo(model))
+    sampler = FCPRSampler(data, batch_size=bs, seed=1)
+    icfg = ISGDConfig(n_batches=sampler.n_batches, **kw)
+    lr_fn = constant_lr(0.03 if model == "lenet-8x8" else 0.005)
+    steps, K = 16 if model != "lenet-8x8" else 32, 4
+
+    init(0)
+    params = params_of()
+    sinit, step = make_train_step(loss_fn, momentum(0.9), icfg, lr_fn=lr_fn)
+    state = sinit(params)
+    ref = TrainLog()
+    for j in range(steps):
+        batch = {k: torch.from_numpy(v).cuda() for k, v in sampler(j).items()}
+        state, params, m = step(state, params, batch)
+        ref.append(m, 0.0)
+
+    init(0)
+    params = params_of()
+    ring = DeviceRing(sampler.epoch_arrays(), bs)
+    cinit, chunk = make_chunked_train_step(loss_fn, momentum(0.9), icfg,
+                                           chunk_steps=K, lr_fn=lr_fn)
+    cstate = cinit(params)
+    got = TrainLog()
+    for c in range(steps // K):
+        cstate, params, ms = chunk(cstate, params, ring.arrays, c * K)
+        got.extend(ms, 0.0)
+    assert chunk.graph is not None
+    assert got.accelerated == ref.accelerated
+    assert got.sub_iters == ref.sub_iters
+    assert sum(got.sub_iters) > 0, "no Alg. 2 trip ran"
+    np.testing.assert_allclose(got.losses, ref.losses, rtol=1e-5)
+    assert int(cstate.sub_iters) == state.sub_iters
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("missing", ["cuda-12.2", "pool-routing"])
+def test_chunked_raises_without_conditional_nodes(cuda, monkeypatch, missing):
+    """On CUDA params the fused engine refuses to start where CUDA-graph
+    IF nodes cannot be captured; it never falls back to host reads."""
+    from repro_torch.core import ISGDConfig, constant_lr
+    from repro_torch.optim import momentum
+    from repro_torch.train import make_chunked_train_step
+
+    params = [torch.zeros(4, device="cuda", requires_grad=True)]
+    init_fn, _ = make_chunked_train_step(
+        lambda b: (params[0].sum(),) * 2, momentum(0.9),
+        ISGDConfig(n_batches=2), chunk_steps=2, lr_fn=constant_lr(0.1))
+    if missing == "cuda-12.2":
+        monkeypatch.setattr(torch.version, "cuda", "12.2")
+    else:
+        monkeypatch.delattr(torch._C, "_cuda_beginAllocateCurrentStreamToPool")
+    with pytest.raises(RuntimeError, match="conditional nodes"):
+        init_fn(params)
+
+
+@pytest.mark.cuda
+def test_if_node_runs_body_where_pred_holds(cuda, monkeypatch):
+    """An IF node around a loss-and-gradient: the body recorded while the
+    step runs eagerly, spliced while it is captured; replayed with the
+    predicate false the graph leaves the output alone, true it adds the
+    eager gradient. A convolution of alexnet-small's first layer at batch
+    256 is in the body (cuDNN's multi-engine convolutions), with cuDNN's
+    deterministic algorithms, so that the graph and the eager run sum in
+    one order."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import run_if
+    from repro_torch.kernels.graph_if import IfBodies, require
+    require()
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    torch.manual_seed(0)
+    w = torch.randn(64, 3, 11, 11, device="cuda", requires_grad=True)
+    x = torch.randn(256, 3, 71, 71, device="cuda")
+    pred = torch.zeros((), dtype=torch.bool, device="cuda")
+    out = torch.zeros_like(w)
+
+    def body():
+        y = F.conv2d(x, w, stride=4)
+        (g,) = torch.autograd.grad(torch.tanh(y).square().sum(), [w])
+        out.add_(g)
+
+    def step():
+        out.mul_(1.0)
+        run_if(pred, body)
+
+    body()                                   # eager: the reference
+    torch.cuda.synchronize()
+    ref = out.clone()
+    out.zero_()
+    bodies = IfBodies("cuda")
+    with bodies.recording():
+        step()
+    assert bodies.recorded == 1 and not out.any()
+    graph = torch.cuda.CUDAGraph()
+    with bodies.splicing(), torch.cuda.graph(graph):
+        step()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert not out.any()
+    pred.fill_(True)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, 2 * ref, rtol=1e-6,
+                               atol=1e-6 * float(ref.abs().max()))
