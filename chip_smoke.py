@@ -20,9 +20,10 @@ chunk), once more with K = 1 on the transformer, and is held against its
 per-step run: the same accelerate and sub_iters sequences and every loss
 within PARITY_TIGHT. Three chunks of each are profiled, one profiler
 cycle a chunk, in a child process of this script
-(``--profile-chunked PATH SPEC``); there the port's kernels are counted
-from the profiler's device events (a graph launches them without passing
-through the wrappers' counters). The paper's
+(``--profile-chunked PATH SPEC``); there the wrappers count their launches
+on the device (``repro_torch.kernels.launch_count``: a graph replays its
+kernels without passing through the wrappers' host counters), and the
+profiler's own count of each kernel is printed beside it. The paper's
 ``alexnet-small`` CNN (64 × 64 × 3, 1000 classes, f32 without TF32,
 batch 256) trains 24 steps through the per-step engine and again through
 the fused engine. Each phase prints one JSON line; the last two lines are
@@ -645,8 +646,8 @@ def chunk_profiler(cycles: int):
     cycle of its own (the chunk loops step it after each chunk) and appends
     that cycle's ``device_rows`` to ``rows``. One window over three chunks
     of a zoo path holds about 80,000 device events, and CUPTI then drops
-    records (433 of 448 ``flash_fwd`` in one such window on an H100); one
-    chunk, about 27,000, loses none."""
+    records (433 of 448 ``flash_fwd`` in one such window on an H100); with
+    one chunk, about 27,000, a cycle it drops fewer, but not always none."""
     from torch.profiler import ProfilerActivity, profile, schedule
     rows = []
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -655,13 +656,18 @@ def chunk_profiler(cycles: int):
     return prof, rows
 
 
-def profile_window(name: str, res: dict, cycles: list, expect: dict,
-                   wall_s: float, ms_per_step: float):
-    """Device time and the port's kernels (the first device kernel of each
-    wrapper) over the profiled chunks. The busy share is that device time
-    over ``wall_s``, the host time of the profiled chunks themselves (the
-    profiler's own work between chunks left out); ``ms_per_step``, the
-    wall time a step of the same run unprofiled, is printed beside it."""
+def profile_window(name: str, res: dict, cycles: list, launches: dict,
+                   expect: dict, wall_s: float, ms_per_step: float):
+    """Device time over the profiled chunks, and the port's launches in
+    them: ``launches``, the wrappers' device counts (``launch_count``),
+    must equal ``expect``; the profiler's count of each wrapper's first
+    device kernel is printed beside them. The profiler is no count to hold
+    a run to: CUPTI drops records of a graph's kernels now and then (439 of
+    448 ``flash_fwd`` in one run of these three chunks on an H100, 448 in
+    others). The busy share is the device time over ``wall_s``, the host
+    time of the profiled chunks themselves (the profiler's own work between
+    chunks left out); ``ms_per_step``, the wall time a step of the same run
+    unprofiled, is printed beside it."""
     merged = {}
     for rows in cycles:
         for t, key, c in rows:
@@ -669,22 +675,23 @@ def profile_window(name: str, res: dict, cycles: list, expect: dict,
             merged[key] = (tt + t, cc + c)
     rows = sorted(((t, key, c) for key, (t, c) in merged.items()), reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
-    counts = {n: sum(c for _, key, c in rows if keys[0] in key)
-              for n, keys in DEVICE_KERNELS.items()}
+    seen = {n: sum(c for _, key, c in rows if keys[0] in key)
+            for n, keys in DEVICE_KERNELS.items()}
     steps = res["steps"]
     emit(name, steps=steps, chunk_steps=res["chunk_steps"], cycles=len(cycles),
          sub_iters=int(res["state"].sub_iters), device_busy_s=busy,
          profiled_chunks_s=wall_s, busy_share=busy / wall_s,
          device_ms_per_step=busy / steps * 1e3,
-         unprofiled_ms_per_step=ms_per_step, launches=counts,
-         expected_launches=expect,
+         unprofiled_ms_per_step=ms_per_step, launches=launches,
+         expected_launches=expect, profiler_launches=seen,
+         profiler_missing={n: expect[n] - seen[n] for n in expect},
          top=[{"name": key[:90], "ms_per_step": t / 1e3 / steps, "calls": c,
                "share": t / 1e6 / busy} for t, key, c in rows[:12]])
     if len(cycles) != steps // res["chunk_steps"]:
         raise SystemExit(f"{name}: {len(cycles)} profiled chunks of "
                          f"{steps // res['chunk_steps']}")
-    if counts != expect:
-        raise SystemExit(f"{name}: device launches {counts} != expected {expect}")
+    if launches != expect:
+        raise SystemExit(f"{name}: device launches {launches} != expected {expect}")
 
 
 def phase_profile_chunked(path: str, per_eval: dict, ms_per_step: float):
@@ -700,11 +707,31 @@ def phase_profile_chunked(path: str, per_eval: dict, ms_per_step: float):
                    check=True)
 
 
+class ZeroedProfiler:
+    """``prof``, entered after zeroing the device launch counts: the
+    launcher enters its profiler after the warm-up and the capture, just
+    before the first chunk."""
+
+    def __init__(self, prof):
+        self.prof, self.step = prof, prof.step
+
+    def __enter__(self):
+        from repro_torch.kernels import launch_count
+        launch_count.reset()
+        return self.prof.__enter__()
+
+    def __exit__(self, *exc):
+        return self.prof.__exit__(*exc)
+
+
 def profile_chunked_child(path: str, spec: dict):
-    """The profiled run of ``phase_profile_chunked``, entered after the
-    warm-up and the capture. A kernel inside an IF node that did not fire
+    """The profiled run of ``phase_profile_chunked``. The wrappers count
+    their launches on the device (``launch_count``, enabled before the
+    capture, zeroed after it). A kernel inside an IF node that did not fire
     does not run, so each wrapper's kernel runs evaluations ×
     per-evaluation times (the CNN runs none of them)."""
+    from repro_torch.kernels import launch_count
+    launch_count.enable("cuda", DEVICE_KERNELS)
     prof, cycles = chunk_profiler(3)
     stepped = []                   # seconds in the profiler's own step()
     step = prof.step
@@ -715,6 +742,7 @@ def profile_chunked_child(path: str, spec: dict):
         stepped.append(time.perf_counter() - t0)
 
     prof.step = timed_step
+    prof = ZeroedProfiler(prof)
     if path == "cnn":
         res = run_cnn_chunked(steps=3 * CHUNK, profiler=prof)
         name = "profile_chunked_cnn"
@@ -725,7 +753,7 @@ def profile_chunked_child(path: str, spec: dict):
         res = launcher.run(args, fused=True, profiler=prof)
         name = "profile_chunked" + SUFFIX[path]
     evals = res["steps"] + int(res["state"].sub_iters)
-    profile_window(name, res, cycles,
+    profile_window(name, res, cycles, launch_count.read(),
                    {n: spec["per_eval"][n] * evals for n in DEVICE_KERNELS},
                    res["seconds"] - sum(stepped), spec["ms_per_step"])
 

@@ -23,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, launch_count
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
@@ -195,6 +195,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
                      window or 0, _DTYPES[q.dtype],
                      None if lists is None else lists.data_ptr(), grid, stream)
     flash_attention.launches += 1
+    launch_count.bump("flash_attention")
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")

@@ -19,7 +19,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, launch_count
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BN = 128          # tokens per block, as in the source
@@ -152,6 +152,7 @@ def fused_xent(h, w, labels, vocab_size: int):
                      labels.data_ptr(), out.data_ptr(), partial.data_ptr(),
                      N, d, Vp, vocab_size, nsplit, _DTYPES[h.dtype], stream)
     fused_xent.launches += 1
+    launch_count.bump("fused_xent")
     if err != 0:
         raise RuntimeError(f"fused_xent kernel launch failed: CUDA error {err}")
     return out

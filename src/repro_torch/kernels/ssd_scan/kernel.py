@@ -31,7 +31,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, launch_count
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64)
@@ -152,6 +152,7 @@ def ssd_intra_chunk(x, dt, A, B, C):
                      y.data_ptr(), states.data_ptr(), decays.data_ptr(),
                      N, cl, nh, hd, G, ds, _DTYPES[x.dtype], stream)
     ssd_intra_chunk.launches += 1
+    launch_count.bump("ssd_scan")
     if err != 0:
         raise RuntimeError(f"ssd_intra_chunk kernel launch failed: CUDA "
                            f"error {err}")

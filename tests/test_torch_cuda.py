@@ -362,6 +362,63 @@ def test_chunked_graph_matches_eager(cuda, model):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("model", ["transformer", "ssm"])
+def test_device_launch_counts_follow_graph_replays(cuda, model):
+    """``launch_count`` counts a kernel at every replay of the fused
+    engine's graph, and in an IF node only where the node's body runs: over
+    16 fused steps each wrapper's device count equals the graph's
+    evaluations times the per-evaluation count of the wrapper's host
+    counter in the eager per-step engine. The steps of the queue's warm-up
+    do not accelerate and later ones take Alg. 2 trips, so IF nodes both
+    skip and fire."""
+    from repro_torch.core import ISGDConfig, constant_lr
+    from repro_torch.data import DeviceRing, FCPRSampler
+    from repro_torch.kernels import launch_count
+    from repro_torch.optim import momentum
+    from repro_torch.train import make_chunked_train_step, make_train_step
+    wrappers = {"fused_xent": fused_xent, "flash_attention": flash_attention,
+                "ssd_scan": ssd_intra_chunk}
+    init, loss_fn, params_of, data, bs, kw = _tiny_zoo(model)
+    sampler = FCPRSampler(data, batch_size=bs, seed=1)
+    icfg = ISGDConfig(n_batches=sampler.n_batches, **kw)
+    lr_fn, steps, K = constant_lr(0.005), 16, 4
+
+    init(0)
+    params = params_of()
+    sinit, step = make_train_step(loss_fn, momentum(0.9), icfg, lr_fn=lr_fn)
+    state = sinit(params)
+    host0 = {n: w.launches for n, w in wrappers.items()}
+    for j in range(steps):
+        batch = {k: torch.from_numpy(v).cuda() for k, v in sampler(j).items()}
+        state, params, _ = step(state, params, batch)
+    evals = steps + state.sub_iters
+    per_eval = {n: (w.launches - host0[n]) // evals
+                for n, w in wrappers.items()}
+    assert all(per_eval[n] * evals == wrappers[n].launches - host0[n]
+               for n in wrappers)
+    assert per_eval["fused_xent"] == 1
+
+    init(0)
+    params = params_of()
+    ring = DeviceRing(sampler.epoch_arrays(), bs)
+    launch_count.enable("cuda", wrappers)
+    try:
+        cinit, chunk = make_chunked_train_step(loss_fn, momentum(0.9), icfg,
+                                               chunk_steps=K, lr_fn=lr_fn)
+        cstate = cinit(params)
+        chunk.prepare(cstate, params, ring.arrays)
+        launch_count.reset()
+        for c in range(steps // K):
+            cstate, params, _ = chunk(cstate, params, ring.arrays, c * K)
+        got = launch_count.read()
+    finally:
+        launch_count.disable()
+    gevals = steps + int(cstate.sub_iters)
+    assert int(cstate.sub_iters) > 0, "no Alg. 2 trip ran"
+    assert got == {n: per_eval[n] * gevals for n in wrappers}
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("missing", ["cuda-12.2", "pool-routing"])
 def test_chunked_raises_without_conditional_nodes(cuda, monkeypatch, missing):
     """On CUDA params the fused engine refuses to start where CUDA-graph

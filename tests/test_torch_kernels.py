@@ -145,6 +145,30 @@ def test_attention_grads_match_jax(shape):
         _close(port.numpy(), ref, AT, scale)
 
 
+def test_launch_count_counts_only_while_enabled_and_only_launches():
+    """``launch_count`` adds where a wrapper bumps it, only while enabled,
+    and only for the kernels it was enabled for; a wrapper given CPU
+    tensors computes its plain version and launches (and bumps) nothing."""
+    from repro_torch.kernels import launch_count
+    h, w, y = _xent_inputs(*XENT_SHAPES[0])
+    launch_count.bump("fused_xent")
+    assert launch_count.read() == {}
+    launch_count.enable("cpu", ["fused_xent", "flash_attention"])
+    try:
+        assert launch_count.read() == {"fused_xent": 0, "flash_attention": 0}
+        launch_count.bump("fused_xent")
+        launch_count.bump("fused_xent")
+        launch_count.bump("ssd_scan")
+        fused_xent(torch.from_numpy(h), torch.from_numpy(w),
+                   torch.from_numpy(y), XENT_SHAPES[0][3])
+        assert launch_count.read() == {"fused_xent": 2, "flash_attention": 0}
+        launch_count.reset()
+        assert launch_count.read() == {"fused_xent": 0, "flash_attention": 0}
+    finally:
+        launch_count.disable()
+    assert launch_count.read() == {}
+
+
 def test_wrappers_check_their_inputs():
     h, w, y = map(torch.from_numpy, _xent_inputs(16, 8, 256, 256))
     with pytest.raises(TypeError):
