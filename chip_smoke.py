@@ -26,8 +26,17 @@ kernels without passing through the wrappers' host counters), and the
 profiler's own count of each kernel is printed beside it. The paper's
 ``alexnet-small`` CNN (64 × 64 × 3, 1000 classes, f32 without TF32,
 batch 256) trains 24 steps through the per-step engine and again through
-the fused engine. Each phase prints one JSON line; the last two lines are
-the kernels summary and ``{"ok": true, "device": {...}}``.
+the fused engine. Then the training loop's surface: ``obs`` runs 8
+transformer steps per engine without and with ``--obs-dir`` (the SPC
+chart reconciled with the engine's queue bit for bit, the JSONL valid,
+the two runs bit-identical), ``micro_batches`` captures the fused step at
+``micro_batches=2`` against the per-step engine, ``profile_dir`` writes
+``--profile-dir`` traces holding the kernels' names and the ``obs/*``
+spans, and ``eval_cnn`` trains ``cifar-quick`` (32 × 32 × 3) with ISGD and
+with SGD, evaluating every epoch with measured walls, and the ISGD leg
+again through the fused engine, whose Alg. 2 trips run in IF nodes around
+cuDNN convolutions. Each phase prints one JSON line; the last two lines
+are the kernels summary and ``{"ok": true, "device": {...}}``.
 
 Nothing is caught: any failure exits nonzero before the last line. Without
 a CUDA device, or outside a checkout of the repository, it exits nonzero
@@ -562,7 +571,8 @@ def phase_profile(model: str, main_checks: dict):
         res = launcher.main(train_args(model, steps=3))
     rows = sorted(((e.self_device_time_total, e.key, e.count)
                    for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.key.startswith(SPANS)),
                   reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
     per_call = {}
@@ -582,14 +592,19 @@ def phase_profile(model: str, main_checks: dict):
 # ---------------------------------------------------------------------------
 # the fused engine (CUDA graph, IF nodes) and the paper's CNN
 # ---------------------------------------------------------------------------
+# host spans that the profiler also projects onto the device timeline
+SPANS = ("ProfilerStep", "obs/")
+
+
 def device_rows(prof) -> list:
     """(self device µs, name, calls) of every CUDA event, largest first,
-    without the profiler's own ``ProfilerStep#`` spans on the device
-    timeline."""
+    without the spans on the device timeline (the profiler's own
+    ``ProfilerStep#`` and the port's ``obs/*``), which would count their
+    kernels twice."""
     return sorted(((e.self_device_time_total, e.key, e.count)
                    for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not e.key.startswith("ProfilerStep")),
+                   and not e.key.startswith(SPANS)),
                   reverse=True)
 
 
@@ -795,9 +810,9 @@ def phase_train_cnn() -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params, state, log = train(params, loss_fn, momentum(0.9), sampler,
-                               steps=CNN_STEPS, isgd_cfg=icfg,
-                               lr_fn=constant_lr(CNN_LR))
+    params, state, log, _ = train(params, loss_fn, momentum(0.9), sampler,
+                                  steps=CNN_STEPS, isgd_cfg=icfg,
+                                  lr_fn=constant_lr(CNN_LR))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     expect1 = math.log(module.cfg.num_classes) + l2
@@ -855,6 +870,305 @@ def phase_chunked_cnn(per_step: dict) -> float:
     return out["ms_per_step_after_first_chunk"]
 
 
+
+# ---------------------------------------------------------------------------
+# telemetry, micro-batches, profiler traces, and evaluation
+# ---------------------------------------------------------------------------
+OBS_STEPS = 8                              # two fused chunks; step 8 accelerates
+
+
+def phase_obs():
+    """The transformer path through the launcher, 8 steps per-step and 8
+    fused (K = 4), each engine run twice in turn: without ``--obs-dir``,
+    then with it (a temporary directory). The observed run's ``spc.final``
+    must reconcile with its engine's queue bit for bit, its JSONL must pass
+    the port's validator, and its losses, accelerate flags and sub_iters
+    must equal the unobserved run's bit for bit: observing changes nothing.
+    ms/step of both runs is printed (after step 1, or after the first
+    chunk), with ``train/dispatches``."""
+    import tempfile
+
+    from repro_torch.launch import train as launcher
+    from repro_torch.obs import read_jsonl, validate
+    for engine, first in (("per-step", 1), ("chunked", CHUNK)):
+        t0 = time.perf_counter()
+        extra = [] if engine == "per-step" else ["--chunk-steps", str(CHUNK)]
+        ref = launcher.main(train_args("transformer", OBS_STEPS) + extra)["log"]
+        with tempfile.TemporaryDirectory() as d:
+            res = launcher.main(train_args("transformer", OBS_STEPS) + extra
+                                + ["--obs-dir", d])
+            valid = validate.main([d]) == 0
+            records = read_jsonl(os.path.join(d, "metrics.p0.jsonl"))
+        log, final = res["log"], res["obs"]
+        same = (log.losses == ref.losses and log.accelerated == ref.accelerated
+                and log.sub_iters == ref.sub_iters)
+        emit("obs", engine=engine, steps=len(log.losses),
+             reconciled=final["reconciled"], mismatches=final["mismatches"],
+             jsonl_valid=valid, records=len(records),
+             accel_events=final["accel_events"], sub_iters=final["sub_iters"],
+             dispatches=final.get("throughput", {}).get("dispatches", 0),
+             identical_to_run_without_obs=same, losses=log.losses,
+             ms_per_step_with_obs=ms_after(log, first),
+             ms_per_step_without_obs=ms_after(ref, first), after_steps=first,
+             peak_mem_gib=res["peak_bytes"] / 2**30,
+             seconds=time.perf_counter() - t0)
+        if not (final["reconciled"] and valid and same):
+            raise SystemExit(f"obs ({engine}): reconciled={final['reconciled']} "
+                             f"{final['mismatches']} valid={valid} "
+                             f"identical={same}")
+
+
+def transformer_parts():
+    """The launcher's transformer set-up (``train_args``), through the
+    library: (model, sampler, ISGDConfig, rule, lr_fn)."""
+    from repro_torch.core import ISGDConfig, constant_lr
+    from repro_torch.data import FCPRSampler, make_lm_tokens
+    from repro_torch.models import build_model
+    from repro_torch.optim import momentum
+    cfg = zoo_base("transformer")
+    m = build_model(cfg, kernels="cuda", param_dtype=torch.bfloat16,
+                    device="cuda")
+    m.init(0)
+    sampler = FCPRSampler(make_lm_tokens(0, 32, 1024, cfg.vocab_size),
+                          batch_size=8, seed=1)
+    icfg = ISGDConfig(n_batches=sampler.n_batches, k_sigma=1.0, stop=3)
+    return m, sampler, icfg, momentum(0.9), constant_lr(0.05)
+
+
+MICRO = 2                                  # micro-batches of the phase below
+
+
+def phase_micro_batches():
+    """``micro_batches=2`` on the transformer path (batch 8 as two of 4):
+    8 steps through the per-step engine (``make_step_core``) and through
+    the fused engine (K = 4), whose graph captures the micro-batch loop and
+    its f32 gradient sums, in the Alg. 2 bodies too. The fused run must
+    equal the per-step run bit for bit (losses, flags, sub_iters). Capture
+    time and peak memory (allocated and reserved) are printed; the fused
+    m = 1 run of the ``chunked`` phase is the comparison."""
+    from repro_torch.data import DeviceRing
+    from repro_torch.train import (TrainLog, host_metrics,
+                                   make_chunked_train_step, make_step_core)
+    logs, peaks = {}, {}
+    capture = None
+    start = time.perf_counter()
+    for engine in ("per-step", "fused"):
+        m, sampler, icfg, rule, lr_fn = transformer_parts()
+        params = m.params()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        log = TrainLog()
+        if engine == "per-step":
+            init_fn, step = make_step_core(m.loss_fn, rule, icfg, lr_fn=lr_fn,
+                                           micro_batches=MICRO)
+            state = init_fn(params)
+            for j in range(OBS_STEPS):
+                batch = {k: torch.from_numpy(v).cuda()
+                         for k, v in sampler(j).items()}
+                state, params, ms = step(state, params, batch)
+                log.append(ms, 0.0)
+        else:
+            ring = DeviceRing(sampler.epoch_arrays(), 8)
+            init_fn, chunk = make_chunked_train_step(
+                m.loss_fn, rule, icfg, chunk_steps=CHUNK, lr_fn=lr_fn,
+                micro_batches=MICRO)
+            state = init_fn(params)
+            chunk.prepare(state, params, ring.arrays)
+            capture = chunk.capture_seconds
+            t0 = time.perf_counter()
+            for c in range(OBS_STEPS // CHUNK):
+                state, params, ms = chunk(state, params, ring.arrays, c * CHUNK)
+                host = host_metrics(ms)          # waits for the chunk
+                log.extend(host, time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        logs[engine] = log
+        peaks[engine] = (torch.cuda.max_memory_allocated() / 2**30,
+                         torch.cuda.max_memory_reserved() / 2**30)
+        del m, params, state
+    ref, got = logs["per-step"], logs["fused"]
+    same = (got.losses == ref.losses and got.accelerated == ref.accelerated
+            and got.sub_iters == ref.sub_iters)
+    emit("micro_batches", config=zoo_base("transformer").name,
+         micro_batches=MICRO, chunk_steps=CHUNK, steps=OBS_STEPS,
+         losses=got.losses, accelerated=got.accelerated,
+         sub_iters=got.sub_iters, bit_exact_with_per_step=same,
+         capture_seconds=capture,
+         fused_ms_per_step_after_first_chunk=ms_after(got, CHUNK),
+         peak_mem_gib={k: v[0] for k, v in peaks.items()},
+         peak_reserved_gib={k: v[1] for k, v in peaks.items()},
+         seconds=time.perf_counter() - start)
+    if not same:
+        raise SystemExit("micro_batches: the fused run differs from the "
+                         "per-step run")
+    if not all(math.isfinite(x) for x in got.losses):
+        raise SystemExit(f"micro_batches: non-finite loss {got.losses}")
+
+
+PROFILE_SPANS = ("obs/psi_push", "obs/accelerate", "obs/chunk_scan")
+PROFILE_KERNELS = ("xent_partial", "flash_fwd")   # within demangled names
+
+
+def phase_profile_dir():
+    """3 steps of the transformer path through the launcher with
+    ``--profile-dir``, per-step and through the fused engine with K = 1 (3
+    chunks): each run writes a trace, and across the two traces the names
+    of the path's kernels (``xent_partial``, ``flash_fwd``) and the three
+    ``obs/*`` spans appear (``obs/chunk_scan`` wraps a chunk's replays;
+    ``obs/psi_push`` and ``obs/accelerate`` run on the host in the
+    per-step engine, and in the fused engine only at its capture, which is
+    before the trace). No launch is counted from a trace: CUPTI drops
+    records of a graph's kernels."""
+    import glob
+    import tempfile
+
+    from repro_torch.launch import train as launcher
+    found = {}
+    for engine in ("per-step", "chunked"):
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as d:
+            args = launcher.parse_args(train_args("transformer", steps=3)
+                                       + ["--chunk-steps", "1",
+                                          "--profile-dir", d])
+            launcher.run(args, fused=engine == "chunked")
+            traces = glob.glob(os.path.join(d, "*.json"))
+            if len(traces) != 1:
+                raise SystemExit(f"profile_dir ({engine}): traces {traces}")
+            size = os.path.getsize(traces[0])
+            with open(traces[0]) as fh:
+                events = json.load(fh)["traceEvents"]
+        kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+        every = {e.get("name") for e in events}
+        names = {n: n in every for n in PROFILE_SPANS}
+        names.update({k: any(k in name for name in kernels)
+                      for k in PROFILE_KERNELS})
+        found[engine] = names
+        emit("profile_dir", engine=engine, trace_bytes=size,
+             kernel_events=sum(e.get("cat") == "kernel" for e in events),
+             names=names, seconds=time.perf_counter() - t0)
+    missing = [n for n in found["per-step"]
+               if not any(f[n] for f in found.values())]
+    if missing:
+        raise SystemExit(f"profile_dir: {missing} in no trace")
+
+
+EVAL_SEED, EVAL_EPOCHS, EVAL_LR, EVAL_BATCH = 100, 5, 0.01, 100
+
+
+def eval_cnn_setup():
+    """``cifar-quick`` at its published width (32 × 32 × 3, 10 classes) on
+    ``make_classification(100, 10000, 32, 3, 10, noise=0.5,
+    class_skew=0.2, class_spread=0.5)`` (100 FCPR batches of 100,
+    shuffle_quality 0.5, as ``benchmarks/table1_time_to_accuracy.py``
+    draws it), 2000 held-out images of seed 877; momentum 0.9, k_sigma 1.5,
+    stop 3, ζ 0.02, f32 without TF32, cuDNN deterministic."""
+    from repro_torch.core import ISGDConfig
+    from repro_torch.data import FCPRSampler, make_classification
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    data = make_classification(EVAL_SEED, 100 * EVAL_BATCH, 32, 3, 10,
+                               noise=0.5, class_skew=0.2, class_spread=0.5)
+    test = make_classification(EVAL_SEED + 777, 2000, 32, 3, 10, noise=0.5)
+    sampler = FCPRSampler(data, batch_size=EVAL_BATCH, seed=EVAL_SEED,
+                          shuffle_quality=0.5)
+    icfg = ISGDConfig(n_batches=sampler.n_batches, k_sigma=1.5, stop=3,
+                      zeta=0.02)
+    return sampler, icfg, {k: torch.from_numpy(v).cuda() for k, v in test.items()}
+
+
+def phase_eval_cnn():
+    """Time to accuracy of ISGD against consistent SGD on ``cifar-quick``
+    from one init (seed 0): per-step with ``eval_fn=cnn_accuracy`` every
+    epoch and ``step_sync=True``, then the ISGD leg again through the fused
+    engine (K = 4), evaluated at each epoch's end. Gates: every per-step
+    wall is measured (``require_measured_walls``), each leg ends
+    at 2× chance or better, ISGD accelerates at least twice, and the fused
+    leg's losses, flags and sub_iters equal the per-step ISGD leg's bit for
+    bit (its Alg. 2 trips run in IF nodes whose bodies hold cuDNN
+    convolutions). Time to accuracy (the first eval wall at the lower of
+    the per-step legs' final accuracies) is reported, not gated."""
+    from repro_torch.configs import CIFAR_QUICK
+    from repro_torch.core import constant_lr
+    from repro_torch.data import DeviceRing
+    from repro_torch.models import CNN, cnn_accuracy, cnn_loss_fn, init_cnn
+    from repro_torch.obs import require_measured_walls
+    from repro_torch.optim import momentum
+    from repro_torch.train import (TrainLog, host_metrics,
+                                   make_chunked_train_step, train)
+    sampler, icfg, test = eval_cnn_setup()
+    steps = EVAL_EPOCHS * sampler.n_batches
+    legs = {}
+    for leg in ("isgd", "sgd", "isgd_fused"):
+        start = time.perf_counter()
+        module = init_cnn(CNN(CIFAR_QUICK, device="cuda"), seed=0)
+        params = list(module.parameters())
+
+        def loss_fn(b, module=module):
+            return cnn_loss_fn(module, b)
+
+        def eval_fn(_, module=module):
+            return cnn_accuracy(module, test["images"], test["labels"])
+
+        torch.cuda.synchronize()
+        if leg != "isgd_fused":
+            _, state, log, evals = train(
+                params, loss_fn, momentum(0.9), sampler, steps=steps,
+                lr=EVAL_LR, inconsistent=leg == "isgd", isgd_cfg=icfg,
+                eval_fn=eval_fn, eval_every=sampler.n_batches,
+                step_sync=True)
+            require_measured_walls(log.wall_est, context=f"eval_cnn {leg}")
+            capture = None
+        else:
+            ring = DeviceRing(sampler.epoch_arrays(), EVAL_BATCH)
+            init_fn, chunk = make_chunked_train_step(
+                loss_fn, momentum(0.9), icfg, chunk_steps=CHUNK,
+                lr_fn=constant_lr(EVAL_LR))
+            state = init_fn(params)
+            chunk.prepare(state, params, ring.arrays)
+            capture = chunk.capture_seconds
+            log, evals = TrainLog(), []
+            t0 = time.perf_counter()
+            for j in range(0, steps, CHUNK):
+                state, params, ms = chunk(state, params, ring.arrays, j)
+                host = host_metrics(ms)          # waits for the chunk
+                log.extend(host, time.perf_counter() - t0)
+                if (j + CHUNK) % sampler.n_batches == 0:
+                    evals.append((j + CHUNK, time.perf_counter() - t0,
+                                  eval_fn(params)))
+        legs[leg] = {"log": log, "evals": evals,
+                     "accelerated": int(state.accel_count),
+                     "sub_iters": int(state.sub_iters), "capture": capture,
+                     "seconds": time.perf_counter() - start}
+    target = min(legs[k]["evals"][-1][2] for k in ("isgd", "sgd"))
+    for leg, r in legs.items():
+        log = r["log"]
+        first = CHUNK if leg == "isgd_fused" else 1
+        hit = [w for _, w, acc in r["evals"] if acc >= target]
+        emit("eval_cnn", leg=leg, config="cifar-quick", batch=EVAL_BATCH,
+             lr=EVAL_LR, steps=len(log.losses),
+             evals=[{"step": s, "wall_s": w, "accuracy": a,
+                     "wall_est": log.wall_est[s - 1]} for s, w, a in r["evals"]],
+             accelerated=r["accelerated"], sub_iters=r["sub_iters"],
+             accelerate_steps=[i + 1 for i, a in enumerate(log.accelerated) if a],
+             target_accuracy=target, time_to_target_s=hit[0] if hit else None,
+             ms_per_step=ms_after(log, first), after_steps=first,
+             capture_seconds=r["capture"], final_loss=log.losses[-1],
+             seconds=r["seconds"])
+        if not all(math.isfinite(x) for x in log.losses):
+            raise SystemExit(f"eval_cnn {leg}: non-finite loss")
+        if r["evals"][-1][2] < 0.2:
+            raise SystemExit(f"eval_cnn {leg}: accuracy {r['evals'][-1][2]} "
+                             f"is below 2x chance")
+    isgd, fused = legs["isgd"]["log"], legs["isgd_fused"]["log"]
+    if legs["isgd"]["accelerated"] < 2:
+        raise SystemExit(f"eval_cnn: ISGD accelerated "
+                         f"{legs['isgd']['accelerated']} times, fewer than 2")
+    if not (fused.losses == isgd.losses and fused.accelerated == isgd.accelerated
+            and fused.sub_iters == isgd.sub_iters):
+        raise SystemExit("eval_cnn: the fused ISGD leg differs from the "
+                         "per-step leg")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
@@ -878,6 +1192,10 @@ def main():
     cnn = phase_train_cnn()
     phase_profile_chunked("cnn", dict.fromkeys(DEVICE_KERNELS, 0),
                           phase_chunked_cnn(cnn))
+    phase_obs()
+    phase_micro_batches()
+    phase_profile_dir()
+    phase_eval_cnn()
     kernels = []
     for name, path, replaces in (
             ("fused_xent", "transformer",

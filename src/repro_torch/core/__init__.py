@@ -1,3 +1,4 @@
+from repro_torch.core import batch_model
 from repro_torch.core.control import (LossQueue, control_limit, init_queue,
                                       mean, push, push_at, std)
 from repro_torch.core.isgd import (DeviceISGDState, ISGDConfig, ISGDState,
@@ -12,4 +13,4 @@ __all__ = ["LossQueue", "control_limit", "init_queue", "mean", "push",
            "consistent_step", "consistent_step_device", "isgd_device_init",
            "isgd_init", "isgd_step", "isgd_step_device", "run_if",
            "solve_subproblem", "ALEXNET_SCHEDULE",
-           "constant_lr", "loss_driven_lr"]
+           "constant_lr", "loss_driven_lr", "batch_model"]

@@ -24,6 +24,11 @@ i running where ``live_i = live_{i-1} & (ψ_{i-1} > limit)`` with
 ``live_0 = accelerate``. Each conditional part goes through ``run_if``:
 while the chunked engine builds its CUDA graph, an IF node of the graph,
 elsewhere a host ``if``, so the CPU runs the same logic.
+
+Both forms mark the queue push and limit (``obs/psi_push``) and the
+accelerate branch (``obs/accelerate``) with profiler spans, as the JAX
+package's named scopes do; a span is host-only and adds nothing to a
+captured graph.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.core import control
+from repro_torch.obs.timing import named_scope
 from repro_torch.optim.base import UpdateRule
 
 
@@ -130,17 +136,21 @@ def isgd_step(rule: UpdateRule, cfg: ISGDConfig, loss_and_grad: Callable,
     del grads
 
     # lines 13-20: queue + control limit (after the push)
-    queue = (control.push(state.queue, loss) if slot is None
-             else control.push_at(state.queue, slot, loss))
-    limit = control.control_limit(queue, cfg.k_sigma)
-    accelerate = bool(loss > limit)      # the one host sync of the step
+    with named_scope("obs/psi_push"):
+        queue = (control.push(state.queue, loss) if slot is None
+                 else control.push_at(state.queue, slot, loss))
+        limit = control.control_limit(queue, cfg.k_sigma)
 
-    used = 0
-    if accelerate:
-        def lg(w):
-            (l, _), g = loss_and_grad(w, batch)
-            return l, g
-        params, used = solve_subproblem(lg, params, limit, loss, lr, cfg)
+    # the branch: its predicate's host read (the step's one sync), then
+    # Alg. 2 where it holds
+    with named_scope("obs/accelerate"):
+        accelerate = bool(loss > limit)
+        used = 0
+        if accelerate:
+            def lg(w):
+                (l, _), g = loss_and_grad(w, batch)
+                return l, g
+            params, used = solve_subproblem(lg, params, limit, loss, lr, cfg)
 
     new_state = ISGDState(base=base_state, queue=queue,
                           iter=state.iter + 1,
@@ -233,8 +243,9 @@ def isgd_step_device(rule: UpdateRule, cfg: ISGDConfig,
     (loss, aux), grads = loss_and_grad(params, batch)
     assign_(state.base, rule.apply(state.base, params, grads, lr))
     del grads
-    assign_(state.queue, control.push(state.queue, loss))
-    limit = control.control_limit(state.queue, cfg.k_sigma)
+    with named_scope("obs/psi_push"):
+        assign_(state.queue, control.push(state.queue, loss))
+        limit = control.control_limit(state.queue, cfg.k_sigma)
     accelerate = loss > limit
 
     trips = state.trips
@@ -258,12 +269,14 @@ def isgd_step_device(rule: UpdateRule, cfg: ISGDConfig,
                          cfg.epsilon, n_w)
         trips.psi.copy_(psi)
 
-    run_if(accelerate, enter)
-    used = torch.zeros((), dtype=torch.int32, device=loss.device)
-    for _ in range(cfg.stop):
-        trips.live.logical_and_(trips.psi > limit)
-        used += trips.live
-        run_if(trips.live, trip)
+    # host-only span: in a capture it adds no node to the graph
+    with named_scope("obs/accelerate"):
+        run_if(accelerate, enter)
+        used = torch.zeros((), dtype=torch.int32, device=loss.device)
+        for _ in range(cfg.stop):
+            trips.live.logical_and_(trips.psi > limit)
+            used += trips.live
+            run_if(trips.live, trip)
 
     state.iter.add_(1)
     state.accel_count.add_(accelerate)

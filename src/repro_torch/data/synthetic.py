@@ -56,6 +56,53 @@ def imagenet_like(seed=0, n=20000):
     return make_classification(seed, n, 64, 3, 1000, noise=0.5, difficulty=2.0)
 
 
+# ---------------------------------------------------------------------------
+# Fig.1 controlled experiments
+# ---------------------------------------------------------------------------
+def single_class_batches(seed: int, batch_size: int, num_classes: int = 10,
+                         image_size: int = 32, channels: int = 3,
+                         noise: float = 0.5, class_spread: float = 2.0):
+    """One batch per class — maximal Sampling Bias (paper Fig. 1a)."""
+    data = []
+    for c in range(num_classes):
+        rng = np.random.RandomState(seed + c)
+        d = make_classification(seed + 1000 + c, batch_size * 4, image_size,
+                                channels, num_classes, noise=noise,
+                                class_spread=class_spread)
+        idx = np.where(d["labels"] == c)[0]
+        while len(idx) < batch_size:    # top up with fresh draws of class c
+            extra = make_classification(rng.randint(1 << 30), batch_size * 4,
+                                        image_size, channels, num_classes,
+                                        noise=noise, class_spread=class_spread)
+            d = {k: np.concatenate([d[k], extra[k]]) for k in d}
+            idx = np.where(d["labels"] == c)[0]
+        sel = idx[:batch_size]
+        data.append({k: v[sel] for k, v in d.items()})
+    return data
+
+
+def iid_batches(seed: int, n_batches: int, per_class: int,
+                num_classes: int = 10, image_size: int = 32, channels: int = 3,
+                noise: float = 0.5):
+    """n_batches batches, each with exactly ``per_class`` samples of every
+    class in the SAME class order (paper Fig. 1b: i.i.d. batches differing
+    only at pixels)."""
+    out = []
+    for b in range(n_batches):
+        imgs, labels = [], []
+        for c in range(num_classes):
+            d = make_classification(seed + 7919 * b + c, per_class * num_classes * 5,
+                                    image_size, channels, num_classes, noise=noise)
+            idx = np.where(d["labels"] == c)[0][:per_class]
+            if len(idx) != per_class:
+                raise ValueError("raise n in make_classification")
+            imgs.append(d["images"][idx])
+            labels.append(d["labels"][idx])
+        out.append({"images": np.concatenate(imgs),
+                    "labels": np.concatenate(labels)})
+    return out
+
+
 def make_lm_tokens(seed: int, n_seqs: int, seq_len: int, vocab: int,
                    order: int = 2):
     """Markov token stream, learnable structure for LM training.

@@ -18,6 +18,14 @@ each chunk is printed. The warm-up and capture happen before the clock
 device-resident ring (``ring_or_prefetch``: the ring if the epoch fits
 256 MiB, else a double-buffered prefetcher).
 
+``--obs-dir D`` writes the run's telemetry (``repro_torch.obs``) to
+``D/metrics.p0.jsonl`` and ``D/summary.json``: the SPC control chart, step
+and dispatch counters and the ``spc.final`` snapshot, reconciled bit for bit
+with the engine's queue (the ``obs: D spc_reconciled=... accel_events=...``
+line before ``done:``). It takes the metrics at the fetches the engines
+already make. ``--profile-dir D`` writes a ``torch.profiler`` trace of the
+timed steps into D.
+
 The run is on the card unless ``--device cpu`` is given; without a CUDA
 device and without that flag it exits nonzero. With ``--kernels cuda`` on
 the card the kernels are built before the clock starts.
@@ -29,12 +37,14 @@ the card the kernels are built before the clock starts.
       --kernels cuda --precision bf16 --batch 8 --seq 1024 --n-seqs 32 \\
       --steps 12 --k-sigma 1.0 --stop 3
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --tier tiny \\
-      --steps 6 --seq 64 --n-seqs 32 [--model ssm] [--chunk-steps 4]
+      --steps 6 --seq 64 --n-seqs 32 [--model ssm] [--chunk-steps 4] \\
+      [--obs-dir /tmp/obs] [--profile-dir /tmp/prof]
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import os
 import time
 
 import torch
@@ -46,8 +56,13 @@ from repro_torch.data import (DeviceRing, FCPRSampler, make_lm_tokens,
 from repro_torch.device import resolve_device
 from repro_torch.kernels import KERNEL_CHOICES, build
 from repro_torch.models import build_model
+from repro_torch.obs import (ConsoleSink, JsonlSink, MetricsRecorder,
+                             TrainObserver, jsonl_path, maybe_profile,
+                             write_merged_summary)
+from repro_torch.obs.console import is_coordinator, process_index
 from repro_torch.optim import RULES
-from repro_torch.train import TrainLog, make_chunked_train_step, train
+from repro_torch.train import (TrainLog, host_metrics,
+                               make_chunked_train_step, train)
 
 
 def parse_args(argv=None):
@@ -82,20 +97,54 @@ def parse_args(argv=None):
                          "--chunk-steps > 1)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; the CPU only when named")
+    ap.add_argument("--obs-dir", default=None,
+                    help="telemetry directory (repro_torch.obs): "
+                         "metrics.pN.jsonl with the live SPC control chart, "
+                         "counters and events, and a summary.json; taken at "
+                         "the engines' existing host fetches")
+    ap.add_argument("--obs-console-every", type=int, default=0,
+                    help="print a one-line obs counter summary every N "
+                         "steps (0 = off; needs --obs-dir)")
+    ap.add_argument("--profile-dir", default=None,
+                    help="write a torch.profiler trace of the timed steps "
+                         "into this directory (spans obs/chunk_scan, "
+                         "obs/psi_push, obs/accelerate)")
     return ap.parse_args(argv)
+
+
+def _make_observer(args, cfg, icfg, engine: str):
+    """``--obs-dir`` -> a ``TrainObserver`` writing this process's JSONL
+    (tagged process_id/engine/model), or None when obs is off."""
+    if not args.obs_dir:
+        return None
+    os.makedirs(args.obs_dir, exist_ok=True)
+    pid = process_index()
+    sinks = [JsonlSink(jsonl_path(args.obs_dir, pid))]
+    if args.obs_console_every:
+        sinks.append(ConsoleSink(every=args.obs_console_every))
+    rec = MetricsRecorder(sinks, tags={"process_id": pid, "engine": engine,
+                                       "model": cfg.name})
+    return TrainObserver(rec, n_batches=icfg.n_batches, k_sigma=icfg.k_sigma,
+                         examples_per_step=args.batch)
 
 
 def run(args, *, fused=None, profiler=None) -> dict:
     """Train as ``args`` say. ``fused`` (default ``--chunk-steps > 1``)
     picks the chunked engine, so that K = 1 can run through it too;
-    ``profiler`` (a ``torch.profiler.profile``) is entered around the
-    timed steps only, and stepped after each chunk of the chunked engine.
+    ``profiler`` (a ``torch.profiler.profile``; ``--profile-dir`` makes
+    one with ``obs.maybe_profile``) is entered around the timed steps only,
+    and stepped after each chunk of the chunked engine.
     -> {"log", "state", "seconds", "steps", "peak_bytes",
-    "peak_reserved", "params", "capture_seconds", "chunk_steps"}."""
+    "peak_reserved", "params", "capture_seconds", "chunk_steps", "obs"}
+    (``obs``: the ``spc.final`` payload with ``--obs-dir``, else None)."""
     dev = resolve_device(args.device)
     k = args.chunk_steps
     if fused is None:
         fused = k > 1
+    if args.profile_dir:
+        if profiler is not None:
+            raise ValueError("pass --profile-dir or a profiler, not both")
+        profiler = maybe_profile(args.profile_dir)
     cfg = zoo_config(args.model, args.tier)
     dtype = torch.float32 if args.precision == "f32" else torch.bfloat16
     model = build_model(cfg, kernels=args.kernels, param_dtype=dtype,
@@ -116,6 +165,7 @@ def run(args, *, fused=None, profiler=None) -> dict:
     icfg = ISGDConfig(n_batches=sampler.n_batches, k_sigma=args.k_sigma,
                       stop=args.stop)
     rule, lr_fn = RULES[args.rule](), constant_lr(args.lr)
+    obs = _make_observer(args, cfg, icfg, "chunked" if fused else "per-step")
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -140,17 +190,25 @@ def run(args, *, fused=None, profiler=None) -> dict:
         if fused:
             state, steps, log = _drive_chunks(
                 chunk_fn, state, params, ring, args.steps, k, t0,
-                on_chunk=getattr(profiler, "step", None))
+                on_chunk=getattr(profiler, "step", None), obs=obs)
         else:
             steps = args.steps
-            params, state, log = train(params, model.loss_fn, rule, feed,
-                                       steps=steps,
-                                       inconsistent=not args.consistent,
-                                       isgd_cfg=icfg, lr_fn=lr_fn,
-                                       log_every=5)
+            params, state, log, _ = train(params, model.loss_fn, rule, feed,
+                                          steps=steps,
+                                          inconsistent=not args.consistent,
+                                          isgd_cfg=icfg, lr_fn=lr_fn,
+                                          log_every=5, observer=obs)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         dt = time.perf_counter() - t0
+    final = None
+    if obs is not None:
+        final = obs.finalize(state, steps=steps, wall=dt)
+        if is_coordinator():
+            write_merged_summary(args.obs_dir)
+        print(f"obs: {args.obs_dir} "
+              f"spc_reconciled={final.get('reconciled', 'n/a')} "
+              f"accel_events={final['accel_events']}")
     print(f"done: {steps} steps in {dt:.1f}s "
           f"({dt/steps*1e3:.0f} ms/step) "
           f"accelerated={int(state.accel_count)} "
@@ -160,20 +218,24 @@ def run(args, *, fused=None, profiler=None) -> dict:
             "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda else None,
             "peak_reserved": torch.cuda.max_memory_reserved(dev) if cuda else None,
             "params": n_params, "capture_seconds": capture,
-            "chunk_steps": k if fused else 1}
+            "chunk_steps": k if fused else 1, "obs": final}
 
 
 def _drive_chunks(chunk_fn, state, params, ring, steps: int, k: int, t0,
-                  on_chunk=None):
+                  on_chunk=None, obs=None):
     """Run ``steps`` (rounded up to whole chunks) through the fused engine,
-    printing the last step of each chunk; ``TrainLog.extend`` is the one
-    host read per chunk, then ``on_chunk()`` if given.
-    -> (state, steps run, log)."""
+    printing the last step of each chunk. ``host_metrics`` is the one host
+    read per chunk: it waits for the chunk, so the wall taken after it is
+    the chunk's end. The log and ``obs`` (a ``TrainObserver``) take its
+    host arrays; then ``on_chunk()`` if given. -> (state, steps run, log)."""
     log = TrainLog()
     j = 0
     while j < steps:
         state, params, ms = chunk_fn(state, params, ring.arrays, j)
-        log.extend(ms, time.perf_counter() - t0)
+        host = host_metrics(ms)
+        log.extend(host, time.perf_counter() - t0)
+        if obs is not None:
+            obs.chunk(j, host)
         j += k
         print(f"step {j:4d} loss={log.losses[-1]:.4f} "
               f"psi_bar={log.psi_bar[-1]:.4f} limit={log.limits[-1]:.4f} "

@@ -17,13 +17,13 @@ own instead of running it (``kernels.graph_if.IfBodies``), restores the
 state, and captures one step into a ``torch.cuda.CUDAGraph``: the batch
 gather, the loss and gradient, the base update, the push and the limit,
 the trips as IF nodes holding the recorded graphs, the metrics row written
-at a device counter and the counters' increments. A chunk is K
-replays and one host read of the (K,) metrics (``TrainLog.extend``). The
-graph holds raw device addresses, so params, optimizer state, queue, ring
-and batch buffer are static tensors updated in place; intermediates live in
-the graph's private pool. Without CUDA-graph conditional nodes the engine
-raises: it never falls back to host reads. On a CPU device the same body
-runs in a plain loop.
+at a device counter and the counters' increments. A chunk is K replays
+(the ``obs/chunk_scan`` profiler span) and one host read of the (K,)
+metrics (``trainer.host_metrics``). The graph holds raw device addresses,
+so params, optimizer state, queue, ring and batch buffer are static
+tensors updated in place; intermediates live in the graph's private pool.
+Without CUDA-graph conditional nodes the engine raises: it never falls
+back to host reads. On a CPU device the same body runs in a plain loop.
 
 Semantics are bit-exact with the per-step engine: the body does the
 per-step arithmetic in the same order, and ``lr_fn`` reads ψ̄ from the
@@ -40,6 +40,7 @@ from repro_torch.core import control
 from repro_torch.core.isgd import (ISGDConfig, consistent_step_device,
                                    isgd_device_init, isgd_step_device)
 from repro_torch.kernels import graph_if
+from repro_torch.obs.timing import named_scope
 from repro_torch.optim.base import UpdateRule
 from repro_torch.train.trainer import make_loss_and_grad
 
@@ -62,12 +63,15 @@ def _tensors(tree):
 
 
 def make_device_step(loss_fn: Callable, rule: UpdateRule, isgd_cfg: ISGDConfig,
-                     *, inconsistent: bool = True, lr_fn: Callable):
+                     *, inconsistent: bool = True, lr_fn: Callable,
+                     micro_batches: int = 1):
     """``(init_fn, step_fn)`` of the device form. ``init_fn(params)`` ->
     ``DeviceISGDState``; ``step_fn(state, params, batch)`` -> ``(state,
     params, metrics)``, updating in place, with the LR read from ψ̄ before
-    the push."""
-    lg = make_loss_and_grad(loss_fn)
+    the push. ``micro_batches`` as in ``make_loss_and_grad``: the loop over
+    micro-batches is static, so a capture records it like the rest of the
+    step (its f32 gradient sums live in the graph's pool)."""
+    lg = make_loss_and_grad(loss_fn, micro_batches)
 
     def init_fn(params):
         return isgd_device_init(rule, isgd_cfg, params,
@@ -166,11 +170,12 @@ class ChunkFn:
         self.prepare(state, params, ring_arrays)
         self.j.fill_(int(j0))
         self.row.zero_()
-        for _ in range(self.chunk_steps):
-            if self.graph is not None:
-                self.graph.replay()
-            else:
-                self._body(state, params, ring_arrays)
+        with named_scope("obs/chunk_scan"):
+            for _ in range(self.chunk_steps):
+                if self.graph is not None:
+                    self.graph.replay()
+                else:
+                    self._body(state, params, ring_arrays)
         return state, params, {k: v.clone() for k, v in self.out.items()}
 
 
@@ -186,17 +191,18 @@ def chunk_over_ring(step_fn: Callable, n_batches: int,
 def make_chunked_train_step(loss_fn: Callable, rule: UpdateRule,
                             isgd_cfg: ISGDConfig, *, chunk_steps: int,
                             inconsistent: bool = True,
-                            lr_fn: Callable = None):
+                            lr_fn: Callable = None, micro_batches: int = 1):
     """``(init_fn, chunk_fn)`` of the single-device fused engine.
     ``lr_fn`` is required: inside a chunk the LR is derived on the device
     from the previous step's queue; there is no host between steps to pass
-    one. ``init_fn`` raises on CUDA params where conditional nodes are
-    missing."""
+    one. ``micro_batches`` as in ``make_loss_and_grad``. ``init_fn`` raises
+    on CUDA params where conditional nodes are missing."""
     if lr_fn is None:
         raise ValueError("the chunked engine needs lr_fn (no per-step host)")
     init_dev, step_fn = make_device_step(loss_fn, rule, isgd_cfg,
                                          inconsistent=inconsistent,
-                                         lr_fn=lr_fn)
+                                         lr_fn=lr_fn,
+                                         micro_batches=micro_batches)
 
     def init_fn(params):
         if params[0].device.type == "cuda":

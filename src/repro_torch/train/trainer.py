@@ -4,6 +4,12 @@ the FCPR data pipeline wired together.
 Port of the per-step half of ``repro.train.trainer``. PyTorch runs eagerly,
 so there is no jit: ``make_train_step`` returns the same step function as
 ``make_step_core``. Parameters are a list of tensors updated in place.
+
+Metrics reach the host only at boundaries, each in ONE transfer
+(``host_metrics``): a fused chunk's (K,) metrics in ``TrainLog.extend``,
+the per-step loop's deferred steps at its log and eval boundaries
+(``train``). An observer (``repro_torch.obs.TrainObserver``) takes the
+host values of that same transfer.
 """
 from __future__ import annotations
 
@@ -11,6 +17,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import control
@@ -20,31 +27,69 @@ from repro_torch.core.schedule import constant_lr
 from repro_torch.optim.base import UpdateRule
 
 
-def make_loss_and_grad(loss_fn: Callable):
+def make_loss_and_grad(loss_fn: Callable, micro_batches: int = 1):
     """loss_fn(batch) -> (total_loss, data_loss) over the leaves ``params``
     ⇒ ``lg(params, batch) -> ((loss, aux), grads)`` with grads of
     total_loss.
 
+    ``micro_batches`` = m > 1 splits the batch on dim 0 into m equal parts
+    and sums their gradients in f32 (grads are then f32), scaled by 1/m;
+    loss and aux are the f32 means, as ``repro.train.trainer`` does it.
+    Activation memory scales with the micro-batch; the f32 sums add one
+    f32 copy of the gradients.
+
     The loss and aux scalars are upcast to f32 here, before anything reads
     them: ψ feeds the SPC queue, the control limit and the loss-driven LR,
     all f32 by contract."""
+    if micro_batches <= 1:
+        def lg(params, batch):
+            total, aux = loss_fn(batch)
+            grads = torch.autograd.grad(total, params)
+            return ((total.detach().to(torch.float32),
+                     aux.detach().to(torch.float32)), grads)
+        return lg
+
+    m = micro_batches
+
     def lg(params, batch):
-        total, aux = loss_fn(batch)
-        grads = torch.autograd.grad(total, params)
-        return ((total.detach().to(torch.float32),
-                 aux.detach().to(torch.float32)), grads)
+        rows = next(iter(batch.values())).shape[0]
+        if any(v.shape[0] != rows for v in batch.values()) or rows % m:
+            raise ValueError(f"micro_batches={m} must divide the batch's "
+                             f"leading dim, {[v.shape[0] for v in batch.values()]}")
+        mb = rows // m
+        f32 = dict(dtype=torch.float32, device=params[0].device)
+        loss = torch.zeros((), **f32)
+        aux = torch.zeros((), **f32)
+        acc = [torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+               for w in params]
+        for i in range(m):
+            total, a = loss_fn({k: v[i * mb:(i + 1) * mb]
+                                for k, v in batch.items()})
+            grads = torch.autograd.grad(total, params)
+            with torch.no_grad():
+                for g_acc, g in zip(acc, grads):
+                    g_acc.add_(g.to(torch.float32))
+            loss = loss + total.detach().to(torch.float32)
+            aux = aux + a.detach().to(torch.float32)
+        inv = 1.0 / m
+        with torch.no_grad():
+            for g_acc in acc:
+                g_acc.mul_(inv)
+        return (loss * inv, aux * inv), acc
     return lg
 
 
 def make_step_core(loss_fn: Callable, rule: UpdateRule, isgd_cfg: ISGDConfig,
-                   *, inconsistent: bool = True, lr_fn: Callable = None):
+                   *, inconsistent: bool = True, lr_fn: Callable = None,
+                   micro_batches: int = 1):
     """``(init_fn, step_fn)``. When ``lr`` is not passed, ``lr_fn`` reads ψ̄
     from the queue BEFORE this step's loss is pushed: the LR is driven by
-    the previous step's statistics (Alg.1 line 19).
+    the previous step's statistics (Alg.1 line 19). ``micro_batches`` as in
+    ``make_loss_and_grad``.
 
     ``step_fn(state, params, batch, lr=None, slot=None)`` ->
     ``(state, params, metrics)``."""
-    lg = make_loss_and_grad(loss_fn)
+    lg = make_loss_and_grad(loss_fn, micro_batches)
 
     def init_fn(params):
         return isgd_init(rule, isgd_cfg, params)
@@ -67,13 +112,31 @@ def make_train_step(loss_fn: Callable, rule: UpdateRule, isgd_cfg: ISGDConfig,
                           lr_fn=lr_fn)
 
 
+def host_metrics(stacked: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """``{key: numpy array}`` of one boundary's metrics, ``aux`` left out.
+    The tensors of ``stacked`` (all of one shape) come to the host in ONE
+    transfer, as f64 (which holds each f32, bool and int32 value exactly);
+    other values (the per-step engine's Python accelerate flag and trip
+    count) are taken as they are."""
+    keys = [k for k in stacked if k != "aux"]
+    dev = [k for k in keys if torch.is_tensor(stacked[k])]
+    out = {k: np.asarray(stacked[k], dtype=np.float64) for k in keys
+           if k not in dev}
+    if dev:
+        host = torch.stack([stacked[k].to(torch.float64)
+                            for k in dev]).cpu().numpy()
+        out.update(zip(dev, host))
+    return {k: out[k] for k in keys}
+
+
 @dataclass
 class TrainLog:
-    """Per-step training record. ``wall[i]`` is seconds since the run's t0
-    at the step's end. A per-step run syncs once a step on the accelerate
-    predicate, so its walls are completion times (``wall_est`` False); the
-    steps of one fused chunk (``extend``) all get the chunk's end and are
-    marked ``wall_est`` True: estimates, not per-step times."""
+    """Per-step training record. ``wall[i]`` is seconds since the run's t0;
+    its deltas are per-step durations only where ``wall_est[i]`` is False.
+    Entries marked True are estimates: the chunk's end for every step of a
+    fused chunk (``extend``), or the time the host got back from a
+    per-step step without ``step_sync`` (the device may still be running
+    it: the step's last kernels are enqueued after its last host read)."""
 
     losses: list = field(default_factory=list)
     limits: list = field(default_factory=list)
@@ -95,26 +158,41 @@ class TrainLog:
         self.wall.append(wall)
         self.wall_est.append(bool(wall_estimated))
 
-    def extend(self, stacked: Dict[str, Any], wall: float):
+    def extend(self, stacked: Dict[str, Any], wall: float) -> Dict[str, np.ndarray]:
         """Take one chunk of the fused engine: ``stacked`` holds (K,)
-        metric tensors, fetched here in ONE host transfer (f64 holds each
-        f32, bool and int32 value exactly). Every step gets the chunk's
-        end ``wall`` and ``wall_est`` True."""
-        keys = [k for k in stacked if k != "aux"]
-        host = torch.stack([stacked[k].to(torch.float64)
-                            for k in keys]).cpu().numpy()
-        for i in range(host.shape[1]):
-            self.append({k: host[r, i] for r, k in enumerate(keys)}, wall,
+        metric tensors, fetched here in the chunk's ONE host transfer, or
+        the host arrays ``host_metrics`` already made of them. Every step
+        gets the chunk's end ``wall`` and ``wall_est`` True. Returns the
+        host arrays (for an observer's ``chunk``)."""
+        host = host_metrics(stacked)
+        for i in range(len(host["loss"])):
+            self.append({k: v[i] for k, v in host.items()}, wall,
                         wall_estimated=True)
+        return host
 
 
 def train(params, loss_fn, rule, sampler, *, steps: int, lr=0.01,
           inconsistent: bool = True, isgd_cfg: Optional[ISGDConfig] = None,
-          lr_fn: Callable = None, log_every: int = 0):
+          lr_fn: Callable = None, log_every: int = 0,
+          eval_fn: Callable = None, eval_every: int = 0,
+          step_sync: bool = False, observer=None):
     """Host loop over FCPR batches: each batch (numpy arrays, or tensors
     from a ``DeviceRing`` or ``PrefetchSampler``) is moved to the params'
-    device. Prints step 1 and every ``log_every``-th step.
-    Returns (params, state, log)."""
+    device.
+
+    The steps' metrics stay on the device until a boundary: step 1 and
+    every ``log_every``-th step (which are printed), every
+    ``eval_every``-th step (then ``eval_fn(params)`` runs), and the end.
+    There the deferred steps come to the host in one transfer and go to the
+    log and, if given, the ``observer`` (``defer`` then ``flush``). A
+    step's ``wall`` is taken when the host gets back from it; without
+    ``step_sync`` the device may still be running the step, so the log
+    marks it estimated (``wall_est = not step_sync``). ``step_sync=True``
+    synchronises the device at the end of each step, so its walls are
+    measured completion times (what an Eq. 21 fit needs).
+
+    Returns ``(params, state, log, evals)``, ``evals`` a list of
+    ``(step, wall, eval_fn(params))``."""
     if isgd_cfg is None:
         isgd_cfg = ISGDConfig(n_batches=sampler.n_batches)
     if lr_fn is None:
@@ -124,13 +202,39 @@ def train(params, loss_fn, rule, sampler, *, steps: int, lr=0.01,
                                        inconsistent=inconsistent, lr_fn=lr_fn)
     state = init_fn(params)
     log = TrainLog()
+    evals = []
+    pending = []                              # (step, device metrics, wall)
     t0 = time.perf_counter()
+
+    def flush():
+        if pending:
+            rows = [m for _, m, _ in pending]
+            host = host_metrics({k: (torch.stack([r[k] for r in rows])
+                                     if torch.is_tensor(rows[0][k])
+                                     else [r[k] for r in rows])
+                                 for k in rows[0] if k != "aux"})
+            for i, (j, _, w) in enumerate(pending):
+                row = {k: v[i] for k, v in host.items()}
+                log.append(row, w, wall_estimated=not step_sync)
+                if observer is not None:
+                    observer.defer(j, row)
+            pending.clear()
+        if observer is not None:
+            observer.flush()
+
     for j in range(steps):
         batch = {k: torch.as_tensor(v).to(dev) for k, v in sampler(j).items()}
         state, params, metrics = step_fn(state, params, batch)
-        log.append(metrics, time.perf_counter() - t0)
+        if step_sync and dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        pending.append((j, metrics, time.perf_counter() - t0))
         if log_every and (j == 0 or (j + 1) % log_every == 0):
+            flush()
             print(f"step {j+1:4d} loss={log.losses[-1]:.4f} "
                   f"psi_bar={log.psi_bar[-1]:.4f} limit={log.limits[-1]:.4f} "
                   f"accel={log.accelerated[-1]}", flush=True)
-    return params, state, log
+        if eval_fn and eval_every and (j + 1) % eval_every == 0:
+            flush()
+            evals.append((j + 1, time.perf_counter() - t0, eval_fn(params)))
+    flush()
+    return params, state, log, evals

@@ -489,3 +489,123 @@ def test_if_node_runs_body_where_pred_holds(cuda, monkeypatch):
     torch.cuda.synchronize()
     torch.testing.assert_close(out, 2 * ref, rtol=1e-6,
                                atol=1e-6 * float(ref.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# telemetry and micro-batches on the card (CPU twins: test_torch_obs.py,
+# test_torch_trainer.py)
+# ---------------------------------------------------------------------------
+def _observed_run(model, engine, micro_batches=1, steps=16, profiler=None):
+    """A tiny run on the card with a ``TrainObserver`` at the engine's own
+    boundaries: per-step through ``train``, fused (K = 4) through chunks
+    whose one host read ``obs.chunk`` ingests. ``profiler``, if given, is
+    entered around the capture and the chunks. -> (observer, state, log,
+    device launch counts of the fused run)."""
+    import contextlib
+
+    from repro_torch.core import ISGDConfig, constant_lr
+    from repro_torch.data import DeviceRing, FCPRSampler
+    from repro_torch.kernels import launch_count
+    from repro_torch.obs import MemorySink, MetricsRecorder, TrainObserver
+    from repro_torch.optim import momentum
+    from repro_torch.train import (TrainLog, make_chunked_train_step,
+                                   make_step_core, train)
+    init, loss_fn, params_of, data, bs, kw = (
+        _lenet8x8() if model == "lenet-8x8" else _tiny_zoo(model))
+    sampler = FCPRSampler(data, batch_size=bs, seed=1)
+    icfg = ISGDConfig(n_batches=sampler.n_batches, **kw)
+    lr_fn = constant_lr(0.03 if model == "lenet-8x8" else 0.005)
+    if model == "lenet-8x8":
+        steps = 32
+    init(0)
+    params = params_of()
+    obs = TrainObserver(MetricsRecorder([MemorySink()],
+                                        tags={"process_id": 0}),
+                        n_batches=icfg.n_batches, k_sigma=icfg.k_sigma)
+    counts = None
+    if engine == "per-step":
+        if micro_batches == 1:
+            _, state, log, _ = train(params, loss_fn, momentum(0.9), sampler,
+                                     steps=steps, isgd_cfg=icfg, lr_fn=lr_fn,
+                                     observer=obs, step_sync=True)
+        else:
+            sinit, step = make_step_core(loss_fn, momentum(0.9), icfg,
+                                         lr_fn=lr_fn,
+                                         micro_batches=micro_batches)
+            state, log = sinit(params), TrainLog()
+            for j in range(steps):
+                batch = {k: torch.from_numpy(v).cuda()
+                         for k, v in sampler(j).items()}
+                state, params, m = step(state, params, batch)
+                log.append(m, 0.0)
+        return obs, state, log, counts
+    ring = DeviceRing(sampler.epoch_arrays(), bs)
+    wrappers = {"fused_xent": fused_xent, "flash_attention": flash_attention,
+                "ssd_scan": ssd_intra_chunk}
+    launch_count.enable("cuda", wrappers)
+    try:
+        with profiler if profiler is not None else contextlib.nullcontext():
+            cinit, chunk = make_chunked_train_step(
+                loss_fn, momentum(0.9), icfg, chunk_steps=4, lr_fn=lr_fn,
+                micro_batches=micro_batches)
+            state = cinit(params)
+            chunk.prepare(state, params, ring.arrays)
+            launch_count.reset()
+            log = TrainLog()
+            for c in range(steps // 4):
+                state, params, ms = chunk(state, params, ring.arrays, c * 4)
+                obs.chunk(c * 4, log.extend(ms, 0.0))
+        counts = launch_count.read()
+    finally:
+        launch_count.disable()
+    assert chunk.graph is not None
+    return obs, state, log, counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["per-step", "fused"])
+@pytest.mark.parametrize("model", ["transformer", "lenet-8x8"])
+def test_spc_reconciles_on_card(cuda, model, engine):
+    """The host mirror of the SPC queue against the queue on the card, bit
+    for bit, after runs that fire the accelerate branch (inside the graph's
+    IF nodes for the fused engine)."""
+    obs, state, log, _ = _observed_run(model, engine)
+    final = obs.finalize(state, steps=len(log.losses), wall=1.0)
+    assert final["reconciled"], final["mismatches"]
+    assert final["accel_count"] == sum(log.accelerated) > 0
+    assert final["sub_iters"] == sum(log.sub_iters) > 0
+    if engine == "per-step":
+        assert log.wall_est == [False] * len(log.losses)
+
+
+@pytest.mark.cuda
+def test_fused_micro_batches_match_eager_on_card(cuda):
+    """``micro_batches=2``: the micro-batch loop and its f32 gradient sums
+    captured into the graph (the trips' too) against the eager per-step
+    engine: the same decisions, losses within 1e-5 relative (f32)."""
+    _, ref_state, ref, _ = _observed_run("transformer", "per-step",
+                                         micro_batches=2)
+    _, state, got, _ = _observed_run("transformer", "fused", micro_batches=2)
+    assert got.accelerated == ref.accelerated and sum(got.sub_iters) > 0
+    assert got.sub_iters == ref.sub_iters
+    np.testing.assert_allclose(got.losses, ref.losses, rtol=1e-5)
+    assert int(state.sub_iters) == ref_state.sub_iters
+
+
+@pytest.mark.cuda
+def test_spans_in_capture_add_no_launch(cuda):
+    """With a profiler running through the warm-up and the capture, the
+    ``obs/psi_push`` and ``obs/accelerate`` spans are live while the step
+    and its IF bodies are captured: the capture still succeeds, and the
+    graph launches each kernel as often as the same run without the
+    profiler (device counts), with the same trajectory."""
+    from torch.profiler import ProfilerActivity, profile
+    _, _, plain, plain_counts = _observed_run("transformer", "fused")
+    prof = profile(activities=[ProfilerActivity.CPU])
+    _, _, spanned, counts = _observed_run("transformer", "fused",
+                                          profiler=prof)
+    names = {e.key for e in prof.key_averages()}
+    assert {"obs/psi_push", "obs/accelerate", "obs/chunk_scan"} <= names
+    assert counts == plain_counts and counts["fused_xent"] > 0
+    assert spanned.losses == plain.losses
+    assert spanned.sub_iters == plain.sub_iters and sum(plain.sub_iters) > 0
