@@ -8,22 +8,31 @@ from the root of the repository. It builds the port's CUDA kernels from
 was compiled (``wgmma`` and TMA in the bf16 routes of all three), holds
 each kernel against its plain PyTorch version on the card, times kernel,
 plain version and library call by device time
-(``cuda_ms``), and drives the port's two zoo training paths
+(``cuda_ms``), and drives the port's three zoo training paths
 through the launcher with ``--kernels cuda``: ``paper-transformer`` (base
-tier, 16 layers) and ``paper-ssm`` (base tier, 24 Mamba2/SSD layers), both
-at full width for 12 ISGD steps. For each path it checks that the run
-really launched that path's kernels, compares step 1's loss with the
-model's plain paths, and profiles three steps. Then each path runs again
-through the fused engine (``--chunk-steps 4``: a CUDA graph of one step,
-the accelerate branch and the Alg. 2 trips in IF nodes, K replays per
-chunk), once more with K = 1 on the transformer, and is held against its
-per-step run: the same accelerate and sub_iters sequences and every loss
-within PARITY_TIGHT. Three chunks of each are profiled, one profiler
+tier, 16 layers), ``paper-ssm`` (base tier, 24 Mamba2/SSD layers) and
+``paper-moe`` (base tier, 12 attention layers, GShard top-2 MoE of 8
+experts on every second), all at full width for 12 ISGD steps. For each
+path it checks that the run launched exactly that path's kernels,
+compares step 1's loss with the model's plain paths (and layer 0's
+mixer, kernel against plain, at the path's shape), and profiles three
+steps. Then each path runs again through the fused engine
+(``--chunk-steps 4``: a CUDA graph of one step, the accelerate branch
+and the Alg. 2 trips in IF nodes, K replays per chunk), once more with
+K = 1 on the transformer, and is held against its per-step run: the same
+accelerate and sub_iters sequences and every loss equal, bit for bit.
+Three chunks of each are profiled, one profiler
 cycle a chunk, in a child process of this script
 (``--profile-chunked PATH SPEC``); there the wrappers count their launches
 on the device (``repro_torch.kernels.launch_count``: a graph replays its
 kernels without passing through the wrappers' host counters), and the
-profiler's own count of each kernel is printed beside it. The paper's
+profiler's own count of each kernel is printed beside it. Then
+``arch_reduced`` trains each of the ten
+assigned architectures' reduced configs for 3 steps (exact launches of
+its layer plan, step-1 loss against the plain paths within ARCH_PARITY),
+and ``chunked_arch`` holds the fused engine bit for bit against the
+per-step engine on reduced DeepSeek-V2-Lite (MLA, a dense prefix, shared
+experts) and Jamba (SSM and attention layers, MoE). The paper's
 ``alexnet-small`` CNN (64 × 64 × 3, 1000 classes, f32 without TF32,
 batch 256) trains 24 steps through the per-step engine and again through
 the fused engine. Then the training loop's surface: ``obs`` runs 8
@@ -44,6 +53,7 @@ and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -52,6 +62,7 @@ import shutil
 import subprocess
 import sys
 import time
+from functools import partial
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -65,8 +76,8 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,      # dense tensor-core bf16
               torch.float32: 67e12}        # f32 outside the tensor cores
 DTYPE_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 
-MODELS = ("transformer", "ssm")            # the training paths, in order
-SUFFIX = {"transformer": "", "ssm": "_ssm"}  # of each path's phase names
+MODELS = ("transformer", "ssm", "moe")     # the training paths, in order
+SUFFIX = {"transformer": "", "ssm": "_ssm", "moe": "_moe"}  # phase names
 XENT_MAIN = (8192, 1024, 32768, 32768)     # N = B·S, d, Vp, vocab
 ATTN_MAIN = (8, 1024, 16, 8, 64)           # B, S, H, K, hd (causal)
 SSD_MAIN = (8, 1024, 32, 64, 1, 128, 256)  # b, S, nh, hd, G, ds, chunk
@@ -484,17 +495,13 @@ def phase_train(model: str) -> dict:
     log, state = res["log"], res["state"]
     steps = res["steps"]
     cfg = zoo_config(model, "base")
-    # one loss-and-gradient per step plus one per Alg.2 trip; ψ launches
-    # fused_xent once per evaluation, and under remat every layer's mixer
-    # kernel runs twice (forward and the backward's recomputation)
     evals = steps + state.sub_iters
-    mixer = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
-    expect = {k: 0 for k in wrappers}
-    expect["fused_xent"] = evals
-    expect[mixer] = 2 * cfg.num_layers * evals
+    expect = {k: n * evals for k, n in launches_per_eval(cfg).items()}
     emit("train" + SUFFIX[model], config=cfg.name, params=res["params"],
+         params_active=cfg.param_count(active_only=True),
          steps=steps, losses=log.losses, accelerated=state.accel_count,
-         sub_iters=state.sub_iters, ms_per_step=res["seconds"] / steps * 1e3,
+         sub_iters=state.sub_iters, branch_fired=bool(state.accel_count),
+         ms_per_step=res["seconds"] / steps * 1e3,
          ms_per_step_after_first=(log.wall[-1] - log.wall[0]) / (steps - 1) * 1e3,
          seconds=res["seconds"], peak_mem_gib=res["peak_bytes"] / 2**30,
          launches=launches, expected_launches=expect)
@@ -506,39 +513,60 @@ def phase_train(model: str) -> dict:
     if launches != expect:
         raise SystemExit(f"kernel launches {launches} != expected {expect}")
     return {"launches": launches, "step1_loss": log.losses[0], "log": log,
-            "per_eval": {k: v // evals for k, v in expect.items()}}
+            "per_eval": launches_per_eval(cfg)}
+
+
+def launches_per_eval(cfg) -> dict:
+    """Kernel launches per loss-and-gradient evaluation under ``--kernels
+    cuda``: ψ launches fused_xent once; under remat each GQA attention
+    layer's flash_attention and each SSM layer's ssd_scan run twice (the
+    forward and the backward's recomputation). MLA, cross attention and
+    the encoder run no kernel, as in the JAX package."""
+    from repro_torch.models.transformer import layer_specs
+    mixers = [s.mixer for s in layer_specs(cfg)]
+    return {"fused_xent": 1, "flash_attention": 2 * mixers.count("attn"),
+            "ssd_scan": 2 * mixers.count("ssm")}
 
 
 def phase_parity(model: str, train_step1: float):
     """Step 1's loss through the kernels and through the model's plain
     paths, from the same init on the same batch: within the bf16 tolerance
     of ``fused_xent`` and within PARITY_TIGHT. At init the loss sits near
-    ln V whatever the mixers return, so for the SSM path the first layer's
-    mixer output is also held, kernel against plain, at the main shape."""
+    ln V whatever the mixers return, so the first layer's mixer output is
+    also held, kernel against plain, at the path's shape (8 × 1024 tokens),
+    within the bf16 tolerance of its kernel: ``ssd_scan`` on the SSM path,
+    ``flash_attention`` (through ``gqa_flash``) on the attention paths."""
     from repro_torch.configs import zoo_config
     from repro_torch.data import FCPRSampler, make_lm_tokens
     from repro_torch.kernels.numerics import TOLERANCES
     from repro_torch.models import build_model
+    from repro_torch.models.layers import attn_forward
     from repro_torch.models.ssm import ssm_forward
     cfg = zoo_config(model, "base")
     data = make_lm_tokens(0, 32, 1024, cfg.vocab_size)
     batch = {"tokens": torch.from_numpy(
         FCPRSampler(data, batch_size=8, seed=1)(0)["tokens"]).cuda()}
     loss = {}
-    mixer = None
     for kernels in ("cuda", "reference"):
         m = build_model(cfg, kernels=kernels, param_dtype=torch.bfloat16,
                         device="cuda")
         m.init(0)
         with torch.no_grad():
             loss[kernels] = float(m.loss_fn(batch)[0])
-            if cfg.family == "ssm" and kernels == "cuda":
+            if kernels == "cuda":
                 h = torch.from_numpy(np.random.RandomState(2).randn(
                     8, 1024, cfg.d_model).astype(np.float32)).cuda().to(torch.bfloat16)
-                p = m.module.layers[0].mixer
-                mixer = compare(ssm_forward(p, cfg, h, use_kernel=True),
-                                ssm_forward(p, cfg, h, use_kernel=False),
-                                TOLERANCES["ssd_scan"]["bfloat16"])
+                layer = m.module.layers[0]
+                pos = torch.arange(1024, device="cuda")[None, :]
+                if layer.spec.mixer == "ssm":
+                    kernel, run = "ssd_scan", partial(ssm_forward, layer.mixer, cfg, h)
+                else:
+                    kernel, run = "flash_attention", partial(
+                        attn_forward, layer.mixer, cfg, h, pos,
+                        window=layer.spec.window)
+                mixer = {"kernel": kernel, **compare(
+                    run(use_kernel=True), run(use_kernel=False),
+                    TOLERANCES[kernel]["bfloat16"])}
         del m
     rtol = TOLERANCES["fused_xent"]["bfloat16"][0]
     rel = abs(loss["cuda"] - loss["reference"]) / abs(loss["reference"])
@@ -548,8 +576,8 @@ def phase_parity(model: str, train_step1: float):
          rtol_tight=PARITY_TIGHT, mixer_layer0=mixer)
     if not (rel <= min(rtol, PARITY_TIGHT) and rel_train <= min(rtol, PARITY_TIGHT)):
         raise SystemExit("step-1 loss: kernels and plain paths disagree")
-    if mixer is not None and not mixer["ok"]:
-        raise SystemExit(f"layer 0's SSM mixer: kernel and plain disagree: {mixer}")
+    if not mixer["ok"]:
+        raise SystemExit(f"layer 0's mixer: kernel and plain disagree: {mixer}")
 
 
 # the device kernels each wrapper launches (the first one once per call)
@@ -616,8 +644,8 @@ def ms_after(log, first: int) -> float:
 
 def report_chunked(name: str, res: dict, ref_log, k: int, **extra) -> dict:
     """The fused run against the per-step run of the same path: identical
-    accelerate and sub_iters sequences, every loss within PARITY_TIGHT
-    relative; ms/step of both after the first chunk."""
+    accelerate and sub_iters sequences and every loss equal, bit for bit;
+    ms/step of both after the first chunk."""
     log = res["log"]
     rel = max(abs(a - b) / abs(b) for a, b in zip(log.losses, ref_log.losses))
     same = (log.accelerated == ref_log.accelerated[:len(log.accelerated)]
@@ -635,8 +663,9 @@ def report_chunked(name: str, res: dict, ref_log, k: int, **extra) -> dict:
     if len(log.losses) != len(ref_log.losses) or not same:
         raise SystemExit(f"{name}: the fused run's decisions differ from the "
                          f"per-step run's")
-    if not rel <= PARITY_TIGHT:
-        raise SystemExit(f"{name}: losses differ by {rel:.3g} relative")
+    if not out["bit_exact"]:
+        raise SystemExit(f"{name}: the fused losses differ from the per-step "
+                         f"run's by up to {rel:.3g} relative")
     return out
 
 
@@ -723,12 +752,12 @@ def phase_profile_chunked(path: str, per_eval: dict, ms_per_step: float):
 
 
 class ZeroedProfiler:
-    """``prof``, entered after zeroing the device launch counts: the
-    launcher enters its profiler after the warm-up and the capture, just
-    before the first chunk."""
+    """``prof`` (a profiler, or a ``nullcontext``), entered after zeroing
+    the device launch counts: the launcher enters its profiler after the
+    warm-up and the capture, just before the first chunk."""
 
     def __init__(self, prof):
-        self.prof, self.step = prof, prof.step
+        self.prof, self.step = prof, getattr(prof, "step", None)
 
     def __enter__(self):
         from repro_torch.kernels import launch_count
@@ -739,14 +768,27 @@ class ZeroedProfiler:
         return self.prof.__exit__(*exc)
 
 
+def device_counted(run, prof=None) -> tuple:
+    """``run(profiler)``, a fused run, with the wrappers counting their
+    launches on the device (``launch_count``: enabled before the capture,
+    zeroed after it by ``ZeroedProfiler`` around ``prof``) -> (run's
+    result, the counts of its timed chunks)."""
+    from repro_torch.kernels import launch_count
+    launch_count.enable("cuda", DEVICE_KERNELS)
+    try:
+        res = run(ZeroedProfiler(prof if prof is not None
+                                 else contextlib.nullcontext()))
+        return res, launch_count.read()
+    finally:
+        launch_count.disable()
+
+
 def profile_chunked_child(path: str, spec: dict):
     """The profiled run of ``phase_profile_chunked``. The wrappers count
     their launches on the device (``launch_count``, enabled before the
     capture, zeroed after it). A kernel inside an IF node that did not fire
     does not run, so each wrapper's kernel runs evaluations ×
     per-evaluation times (the CNN runs none of them)."""
-    from repro_torch.kernels import launch_count
-    launch_count.enable("cuda", DEVICE_KERNELS)
     prof, cycles = chunk_profiler(3)
     stepped = []                   # seconds in the profiler's own step()
     step = prof.step
@@ -757,18 +799,19 @@ def profile_chunked_child(path: str, spec: dict):
         stepped.append(time.perf_counter() - t0)
 
     prof.step = timed_step
-    prof = ZeroedProfiler(prof)
     if path == "cnn":
-        res = run_cnn_chunked(steps=3 * CHUNK, profiler=prof)
+        res, launches = device_counted(
+            lambda p: run_cnn_chunked(steps=3 * CHUNK, profiler=p), prof)
         name = "profile_chunked_cnn"
     else:
         from repro_torch.launch import train as launcher
         args = launcher.parse_args(train_args(path, steps=3 * CHUNK)
                                    + ["--chunk-steps", str(CHUNK)])
-        res = launcher.run(args, fused=True, profiler=prof)
+        res, launches = device_counted(
+            lambda p: launcher.run(args, fused=True, profiler=p), prof)
         name = "profile_chunked" + SUFFIX[path]
     evals = res["steps"] + int(res["state"].sub_iters)
-    profile_window(name, res, cycles, launch_count.read(),
+    profile_window(name, res, cycles, launches,
                    {n: spec["per_eval"][n] * evals for n in DEVICE_KERNELS},
                    res["seconds"] - sum(stepped), spec["ms_per_step"])
 
@@ -834,7 +877,6 @@ def phase_train_cnn() -> dict:
 def run_cnn_chunked(steps: int = CNN_STEPS, profiler=None) -> dict:
     """The CNN through ``make_chunked_train_step`` over a ``DeviceRing``;
     warm-up and capture before the clock, ``profiler`` around the steps."""
-    import contextlib
 
     from repro_torch.core import constant_lr
     from repro_torch.data import DeviceRing
@@ -1169,6 +1211,117 @@ def phase_eval_cnn():
                          "per-step leg")
 
 
+# ---------------------------------------------------------------------------
+# the ten assigned architectures, reduced
+# ---------------------------------------------------------------------------
+# step-1 loss of a reduced config, kernels against plain paths, relative, in
+# bf16: a kernel's rounding can flip a near-tie of an MoE router's top-k at
+# init and send a token to another expert (reduced Mixtral: 8.8e-4 on an
+# NVIDIA H100 80GB HBM3 at 700 W; the configs without MoE within 3e-4)
+ARCH_PARITY = 2e-3
+ARCH_STEPS, CHUNK_ARCH_STEPS = 3, 8
+CHUNKED_ARCHS = ("deepseek_v2_lite_16b", "jamba_v0_1_52b")
+
+
+def arch_args(arch: str, steps: int) -> list:
+    """A reduced architecture through the launcher: bf16, batch 2 × 64."""
+    return ["--arch", arch, "--reduced", "--kernels", "cuda", "--precision",
+            "bf16", "--batch", "2", "--seq", "64", "--n-seqs", "8",
+            "--steps", str(steps), "--k-sigma", "1.0", "--stop", "3",
+            "--device", "cuda"]
+
+
+def arch_step1_loss(cfg, kernels: str) -> float:
+    """Step 1's total loss of the launcher's run (init seed 0, FCPR batch
+    0 of ``make_lm_tokens(0, 8, 64, V)``, zero bf16 frontend embeddings)
+    through ``kernels``, without a gradient."""
+    from repro_torch.data import FCPRSampler, make_lm_tokens
+    from repro_torch.launch.train import frontend_embeds
+    from repro_torch.models import build_model
+    data = make_lm_tokens(0, 8, 64, cfg.vocab_size)
+    batch = {"tokens": torch.from_numpy(
+        FCPRSampler(data, batch_size=2, seed=1)(0)["tokens"]).cuda(),
+        **frontend_embeds(cfg, 2, "cuda")}
+    m = build_model(cfg, kernels=kernels, param_dtype=torch.bfloat16,
+                    device="cuda")
+    m.init(0)
+    with torch.no_grad():
+        return float(m.loss_fn(batch)[0])
+
+
+def phase_arch_reduced():
+    """Every ``ARCH_IDS`` entry's ``reduced()`` config, 3 per-step steps
+    through the launcher with ``--kernels cuda`` in bf16. Each run must
+    launch exactly its plan's kernels (``launches_per_eval``: flash_attention
+    on every GQA attention layer, none on MLA, cross attention or the
+    encoder; ssd_scan on every SSM layer; fused_xent once an evaluation),
+    and its step-1 loss must agree, within ARCH_PARITY relative, with the
+    same init and batch through the kernels without a gradient and through
+    ``--kernels reference``."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.fused_xent import fused_xent
+    from repro_torch.kernels.ssd_scan import ssd_intra_chunk
+    from repro_torch.launch import train as launcher
+    wrappers = {"fused_xent": fused_xent, "flash_attention": flash_attention,
+                "ssd_scan": ssd_intra_chunk}
+    for arch in ARCH_IDS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch).reduced()
+        for w in wrappers.values():
+            w.launches = 0
+        res = launcher.main(arch_args(arch, ARCH_STEPS))
+        launches = {k: w.launches for k, w in wrappers.items()}
+        log, state = res["log"], res["state"]
+        evals = res["steps"] + int(state.sub_iters)
+        expect = {k: n * evals for k, n in launches_per_eval(cfg).items()}
+        loss = {k: arch_step1_loss(cfg, k) for k in ("cuda", "reference")}
+        rel = abs(loss["cuda"] - loss["reference"]) / abs(loss["reference"])
+        rel_train = abs(log.losses[0] - loss["cuda"]) / abs(loss["cuda"])
+        emit("arch_reduced", arch=arch, config=cfg.name, family=cfg.family,
+             params=res["params"], steps=res["steps"], losses=log.losses,
+             sub_iters=int(state.sub_iters), launches=launches,
+             expected_launches=expect, loss_cuda=loss["cuda"],
+             loss_reference=loss["reference"], rel=rel, rel_train=rel_train,
+             rtol=ARCH_PARITY, ms_per_step=res["seconds"] / res["steps"] * 1e3,
+             seconds=time.perf_counter() - t0)
+        if not all(math.isfinite(x) for x in log.losses):
+            raise SystemExit(f"arch_reduced {arch}: non-finite loss {log.losses}")
+        if launches != expect:
+            raise SystemExit(f"arch_reduced {arch}: launches {launches} != "
+                             f"expected {expect}")
+        if not (rel <= ARCH_PARITY and rel_train <= ARCH_PARITY):
+            raise SystemExit(f"arch_reduced {arch}: step-1 loss, kernels and "
+                             f"plain paths disagree ({rel:.3g}, {rel_train:.3g})")
+
+
+def phase_chunked_arch():
+    """Two reduced configs through the fused engine (K = 4, 8 steps)
+    against the per-step engine (8 steps), bit for bit: DeepSeek-V2-Lite
+    (a dense prefix layer, MLA, shared experts) and Jamba (seven SSM layers
+    and one attention layer, MoE every second layer), so that MoE routing,
+    MLA and ssd_scan run inside the captured graph. The fused run's
+    launches are counted on the device (``launch_count``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launcher
+    for arch in CHUNKED_ARCHS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch).reduced()
+        ref = launcher.main(arch_args(arch, CHUNK_ARCH_STEPS))
+        args = launcher.parse_args(arch_args(arch, CHUNK_ARCH_STEPS)
+                                   + ["--chunk-steps", str(CHUNK)])
+        res, launches = device_counted(
+            lambda p: launcher.run(args, fused=True, profiler=p))
+        evals = res["steps"] + int(res["state"].sub_iters)
+        expect = {k: n * evals for k, n in launches_per_eval(cfg).items()}
+        report_chunked("chunked_arch", res, ref["log"], CHUNK, arch=arch, config=cfg.name, launches=launches,
+                       expected_launches=expect,
+                       seconds=time.perf_counter() - t0)
+        if launches != expect:
+            raise SystemExit(f"chunked_arch {arch}: device launches "
+                             f"{launches} != expected {expect}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
@@ -1189,6 +1342,8 @@ def main():
         if model == "transformer":
             phase_chunked(model, train[model], k=1)
         phase_profile_chunked(model, train[model]["per_eval"], ms)
+    phase_arch_reduced()
+    phase_chunked_arch()
     cnn = phase_train_cnn()
     phase_profile_chunked("cnn", dict.fromkeys(DEVICE_KERNELS, 0),
                           phase_chunked_cnn(cnn))
@@ -1208,6 +1363,8 @@ def main():
                         "source": f"src/repro_torch/kernels/csrc/{name}.cu",
                         "replaces": replaces, "design": DESIGN[name],
                         "launches": train[path]["launches"][name],
+                        "launches_by_path": {m: train[m]["launches"][name]
+                                             for m in MODELS},
                         "max_abs_err": r["max_abs"], "ms": r["kernel_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],

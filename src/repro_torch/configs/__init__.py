@@ -1,13 +1,15 @@
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ARCH_IDS, ModelConfig, get_config
 from repro_torch.configs.paper_cnns import (ALEXNET_SMALL, CIFAR_QUICK, LENET,
                                             PAPER_CNNS, CNNConfig, ConvSpec)
-from repro_torch.configs.paper_transformer import (PAPER_SSM, PAPER_SSM_TINY,
+from repro_torch.configs.paper_transformer import (PAPER_MOE, PAPER_MOE_TINY,
+                                                   PAPER_SSM, PAPER_SSM_TINY,
                                                    PAPER_TRANSFORMER,
                                                    PAPER_TRANSFORMER_TINY, ZOO,
                                                    ZOO_MODELS, ZOO_TIERS,
                                                    zoo_config)
 
-__all__ = ["ModelConfig", "ALEXNET_SMALL", "CIFAR_QUICK", "LENET",
-           "PAPER_CNNS", "CNNConfig", "ConvSpec", "PAPER_SSM",
-           "PAPER_SSM_TINY", "PAPER_TRANSFORMER", "PAPER_TRANSFORMER_TINY",
-           "ZOO", "ZOO_MODELS", "ZOO_TIERS", "zoo_config"]
+__all__ = ["ARCH_IDS", "ModelConfig", "get_config", "ALEXNET_SMALL",
+           "CIFAR_QUICK", "LENET", "PAPER_CNNS", "CNNConfig", "ConvSpec",
+           "PAPER_MOE", "PAPER_MOE_TINY", "PAPER_SSM", "PAPER_SSM_TINY",
+           "PAPER_TRANSFORMER", "PAPER_TRANSFORMER_TINY", "ZOO", "ZOO_MODELS",
+           "ZOO_TIERS", "zoo_config"]

@@ -1,6 +1,8 @@
-"""The dense and ssm entries of the ``paper_transformer`` zoo (copied from
-``repro.configs.paper_transformer``): ``tiny`` is the CPU test tier, ``base``
-the single-card tier the port trains on the H100."""
+"""The ``paper_transformer`` zoo (copied from
+``repro.configs.paper_transformer``): one family per mixer class, dense
+attention, GShard top-2 MoE and Mamba2/SSD, each in two tiers: ``tiny`` is
+the CPU test tier, ``base`` the single-card tier the port trains on the
+H100."""
 from repro_torch.configs.base import ModelConfig
 
 PAPER_TRANSFORMER_TINY = ModelConfig(
@@ -16,6 +18,25 @@ PAPER_TRANSFORMER = ModelConfig(
     d_ff=4096, vocab_size=32768, rope_theta=1e5,
     source="arXiv:1603.05544 §5 workloads, transformer counterpart "
            "(single-host tier, ~0.4B params)",
+)
+
+PAPER_MOE_TINY = ModelConfig(
+    name="paper-moe-tiny", family="moe",
+    num_layers=2, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
+    d_ff=128, vocab_size=256, tie_embeddings=True,
+    num_experts=4, top_k=2, moe_d_ff=128, moe_every=1,
+    # no-drop capacity: keeps tiny-tier parity runs deterministic in the
+    # face of capacity drops that depend on group composition
+    moe_capacity_factor=1e9,
+    source="GShard-style top-2 MoE, CI tier",
+)
+
+PAPER_MOE = ModelConfig(
+    name="paper-moe", family="moe",
+    num_layers=12, d_model=768, num_heads=12, num_kv_heads=4, head_dim=64,
+    d_ff=3072, vocab_size=32768, rope_theta=1e5,
+    num_experts=8, top_k=2, moe_d_ff=1536, moe_every=2,
+    source="GShard-style top-2 MoE, single-host tier",
 )
 
 PAPER_SSM_TINY = ModelConfig(
@@ -35,11 +56,13 @@ PAPER_SSM = ModelConfig(
 ZOO = {
     ("transformer", "tiny"): PAPER_TRANSFORMER_TINY,
     ("transformer", "base"): PAPER_TRANSFORMER,
+    ("moe", "tiny"): PAPER_MOE_TINY,
+    ("moe", "base"): PAPER_MOE,
     ("ssm", "tiny"): PAPER_SSM_TINY,
     ("ssm", "base"): PAPER_SSM,
 }
 
-ZOO_MODELS = ("transformer", "ssm")
+ZOO_MODELS = ("transformer", "moe", "ssm")
 ZOO_TIERS = ("tiny", "base")
 
 

@@ -1,0 +1,12 @@
+"""StarCoder2-3B — dense GQA (kv=2), RoPE [arXiv:2402.19173].
+
+A copy of ``repro.configs.starcoder2_3b``.
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="starcoder2-3b", family="dense",
+    num_layers=30, d_model=3072, num_heads=24, num_kv_heads=2, head_dim=128,
+    d_ff=12288, vocab_size=49152, rope_theta=1e5, tie_embeddings=True,
+    source="arXiv:2402.19173",
+)

@@ -32,6 +32,9 @@ DEFAULT_BYTE_BUDGET = 256 * 1024 * 1024     # 256 MiB of epoch per replica
 
 
 class DeviceRing:
+    """``epoch_arrays``: the permuted epoch, numpy arrays or tensors with
+    one row per sample, uploaded to ``device`` once."""
+
     def __init__(self, epoch_arrays: Dict[str, np.ndarray], batch_size: int,
                  *, device="cuda"):
         n = next(iter(epoch_arrays.values())).shape[0]
@@ -44,7 +47,8 @@ class DeviceRing:
         self.device = resolve_device(device)
         self.batch_size = batch_size
         self.n_batches = n // batch_size
-        self.arrays = {k: torch.from_numpy(np.ascontiguousarray(v))
+        self.arrays = {k: (v if torch.is_tensor(v) else
+                           torch.from_numpy(np.ascontiguousarray(v)))
                        .to(self.device)
                        for k, v in epoch_arrays.items()}
 

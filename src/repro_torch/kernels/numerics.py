@@ -34,14 +34,18 @@ ATTN_SHAPES = [
 # Edges of the bf16 wgmma + TMA routes (the port's own; the JAX package has
 # no counterpart): every head dim, ragged S (TMA zero-fills rows past S,
 # the mask drops key columns past Sk), a window that starts inside a key
-# tile, non-causal, and the main shape's 16/8 GQA.
+# tile, non-causal, and the training paths' shapes: paper-transformer's
+# 16/8 GQA, paper-moe's 12/4 (three query heads a KV head) and the reduced
+# architectures' local layers (hd 32, window 16).
 # flash_attention: (B, S, H, K, hd, causal, window)
 ATTN_EDGES = (
     [(2, 100, 4, 2, hd, True, None) for hd in (16, 32, 64, 128)]
     + [(2, 192, 4, 2, hd, False, None) for hd in (16, 32, 64, 128)]
     + [(1, 192, 8, 2, hd, True, 64) for hd in (16, 32, 64, 128)]
     + [(1, 512, 4, 1, 64, True, 100),     # first visited key tile > 0
-       (8, 1024, 16, 8, 64, True, None)]  # the training shape
+       (2, 64, 4, 2, 32, True, 16),       # reduced Mixtral, Gemma3 local
+       (8, 1024, 16, 8, 64, True, None),  # paper-transformer
+       (8, 1024, 12, 4, 64, True, None)]  # paper-moe
 )
 
 # fused_xent: (N, d, Vp, V, tied) -- tied: W is the transposed view of a
@@ -53,6 +57,9 @@ XENT_EDGES = [
     (384, 48, 256, 200, True),
     (384, 64, 1024, 1024, False),
     (200, 32, 384, 384, True),           # d = 32, three vocab tiles
+    (128, 256, 512, 512, False),         # the reduced architectures' heads
+    (128, 256, 512, 512, True),          # (starcoder2, gemma3 tie them)
+    (8192, 768, 32768, 32768, False),    # paper-moe
 ]
 
 # ssd_scan: (b, S, nh, hd, G, ds, chunk)
@@ -80,6 +87,7 @@ SSD_EDGES = [
     (2, 384, 4, 64, 1, 64, 192, True),
     (1, 512, 6, 16, 2, 128, 256, True),
     (3, 1024, 8, 64, 1, 128, 256, True),   # 5 head slices of 8 heads
+    (2, 64, 32, 16, 1, 32, 16, True),      # reduced Jamba and Mamba2
     (8, 1024, 32, 64, 1, 128, 256, True),  # the training shape
 ]
 

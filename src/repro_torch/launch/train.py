@@ -1,12 +1,16 @@
 """Training launcher: the single-device ISGD engines, per-step and fused.
 
-Port of the single-device engines of ``repro.launch.train`` for the dense
-(``--model transformer``) and Mamba2/SSD (``--model ssm``) entries of the
-``paper_transformer`` zoo. It builds the model, draws the synthetic LM
-token stream (``make_lm_tokens(0, n_seqs, seq, vocab)``) into an FCPR ring
+Port of the single-device engines of ``repro.launch.train``. It trains
+one of the ``paper_transformer`` zoo models (``--model transformer|moe|ssm
+--tier tiny|base``) or one of the ten assigned architectures (``--arch
+ID``, with ``--reduced`` its CPU-size variant); exactly one of ``--model``
+and ``--arch`` is given. It builds the model, draws the synthetic LM token
+stream (``make_lm_tokens(0, n_seqs, seq, vocab)``) into an FCPR ring
 (``seed=1``), and trains through ``repro_torch.train.train``, printing the
 JAX launcher's ``step N loss= psi_bar= limit= accel=`` lines and its
-``done: ... accelerated= sub_iters=`` line.
+``done: ... accelerated= sub_iters=`` line. A VLM or an enc-dec model gets
+constant zero frontend embeddings in bf16 (``frontend_embeds``), in every
+batch, as the JAX launcher feeds them.
 
 ``--chunk-steps K`` (K > 1) runs the fused engine
 (``repro_torch.train.make_chunked_train_step``): the epoch lives on the
@@ -36,9 +40,14 @@ the card the kernels are built before the clock starts.
   PYTHONPATH=src python -m repro_torch.launch.train --model ssm --tier base \\
       --kernels cuda --precision bf16 --batch 8 --seq 1024 --n-seqs 32 \\
       --steps 12 --k-sigma 1.0 --stop 3
-  PYTHONPATH=src python -m repro_torch.launch.train --device cpu --tier tiny \\
-      --steps 6 --seq 64 --n-seqs 32 [--model ssm] [--chunk-steps 4] \\
-      [--obs-dir /tmp/obs] [--profile-dir /tmp/prof]
+  PYTHONPATH=src python -m repro_torch.launch.train --model moe --tier base \\
+      --kernels cuda --precision bf16 --batch 8 --seq 1024 --n-seqs 32 \\
+      --steps 12 --k-sigma 1.0 --stop 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch jamba_v0_1_52b \\
+      --reduced --batch 2 --seq 64 --n-seqs 8 --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --model transformer --tier tiny --steps 6 --seq 64 --n-seqs 32 \\
+      [--chunk-steps 4] [--obs-dir /tmp/obs] [--profile-dir /tmp/prof]
 """
 from __future__ import annotations
 
@@ -49,7 +58,7 @@ import time
 
 import torch
 
-from repro_torch.configs import ZOO_MODELS, ZOO_TIERS, zoo_config
+from repro_torch.configs import ZOO_MODELS, ZOO_TIERS, get_config, zoo_config
 from repro_torch.core import ISGDConfig, constant_lr
 from repro_torch.data import (DeviceRing, FCPRSampler, make_lm_tokens,
                               ring_or_prefetch)
@@ -67,8 +76,16 @@ from repro_torch.train import (TrainLog, host_metrics,
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model", default="transformer", choices=list(ZOO_MODELS))
-    ap.add_argument("--tier", default="tiny", choices=list(ZOO_TIERS))
+    ap.add_argument("--arch", default=None,
+                    help="assigned architecture config (repro_torch.configs)")
+    ap.add_argument("--model", default=None, choices=list(ZOO_MODELS),
+                    help="paper_transformer zoo family (alternative to "
+                         "--arch)")
+    ap.add_argument("--tier", default="tiny", choices=list(ZOO_TIERS),
+                    help="zoo tier for --model (tiny = CPU tests, base = "
+                         "the card)")
+    ap.add_argument("--reduced", action="store_true",
+                    help="the CPU-size variant of an --arch config")
     ap.add_argument("--kernels", default="cuda", choices=list(KERNEL_CHOICES),
                     help="cuda: the hand-written kernels (their plain "
                          "versions on a CPU device); reference: the model's "
@@ -112,6 +129,56 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+def resolve_config(args):
+    """The config that ``--model``/``--tier`` or ``--arch``/``--reduced``
+    name; raises ValueError unless exactly one of ``--model`` and
+    ``--arch`` is given, or on ``--reduced`` with ``--model``."""
+    if (args.arch is None) == (args.model is None):
+        raise ValueError("pass exactly one of --arch or --model")
+    if args.model is not None:
+        if args.reduced:
+            raise ValueError("--reduced applies to --arch configs; the zoo's "
+                             "CPU tier is --tier tiny")
+        return zoo_config(args.model, args.tier)
+    cfg = get_config(args.arch)
+    return cfg.reduced() if args.reduced else cfg
+
+
+def frontend_embeds(cfg, batch_size: int, device) -> dict:
+    """Constant zero frontend embeddings in bf16 for a VLM (image tokens)
+    or an enc-dec model (audio frames), as the JAX launcher makes them;
+    {} for the other families."""
+    if cfg.family == "vlm":
+        shape = (batch_size, cfg.num_image_tokens, cfg.d_model)
+    elif cfg.family == "encdec":
+        shape = (batch_size, cfg.encoder_seq, cfg.d_model)
+    else:
+        return {}
+    return {"frontend_embeds": torch.zeros(shape, dtype=torch.bfloat16,
+                                           device=device)}
+
+
+def ring_epoch(cfg, sampler, batch_size: int, device) -> dict:
+    """Epoch arrays for a ``DeviceRing``, with the frontend embeddings
+    tiled to one row per sample, so that a ring slice is the batch the
+    per-step engine gets."""
+    epoch = dict(sampler.epoch_arrays())
+    for k, v in frontend_embeds(cfg, batch_size, device).items():
+        epoch[k] = v.repeat(sampler.n_batches, *(1,) * (v.dim() - 1))
+    return epoch
+
+
+class WithExtras:
+    """A sampler whose batches also carry the tensors of ``extra``."""
+
+    def __init__(self, sampler, extra: dict):
+        self.sampler, self.extra = sampler, extra
+        self.n_batches = sampler.n_batches
+
+    def __call__(self, j: int) -> dict:
+        return dict(self.sampler(j), **self.extra)
+
+
 def _make_observer(args, cfg, icfg, engine: str):
     """``--obs-dir`` -> a ``TrainObserver`` writing this process's JSONL
     (tagged process_id/engine/model), or None when obs is off."""
@@ -145,7 +212,7 @@ def run(args, *, fused=None, profiler=None) -> dict:
         if profiler is not None:
             raise ValueError("pass --profile-dir or a profiler, not both")
         profiler = maybe_profile(args.profile_dir)
-    cfg = zoo_config(args.model, args.tier)
+    cfg = resolve_config(args)
     dtype = torch.float32 if args.precision == "f32" else torch.bfloat16
     model = build_model(cfg, kernels=args.kernels, param_dtype=dtype,
                         remat=args.remat != "none", device=dev)
@@ -171,7 +238,8 @@ def run(args, *, fused=None, profiler=None) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
     capture = 0.0
     if fused:
-        ring = DeviceRing(sampler.epoch_arrays(), args.batch, device=dev)
+        ring = DeviceRing(ring_epoch(cfg, sampler, args.batch, dev),
+                          args.batch, device=dev)
         init_fn, chunk_fn = make_chunked_train_step(
             model.loss_fn, rule, icfg, chunk_steps=k,
             inconsistent=not args.consistent, lr_fn=lr_fn)
@@ -185,6 +253,9 @@ def run(args, *, fused=None, profiler=None) -> dict:
         if args.device_ring:
             feed = ring_or_prefetch(sampler, device=dev)
             print(f"input: {type(feed).__name__}")
+        extra = frontend_embeds(cfg, args.batch, dev)
+        if extra:
+            feed = WithExtras(feed, extra)
     with profiler if profiler is not None else contextlib.nullcontext():
         t0 = time.perf_counter()
         if fused:
@@ -249,7 +320,8 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     try:
         resolve_device(args.device)
-    except RuntimeError as e:        # the CLI boundary: no card, no --device cpu
+        resolve_config(args)
+    except (RuntimeError, ValueError) as e:   # the CLI boundary
         raise SystemExit(f"error: {e}") from None
     return run(args)
 

@@ -1,12 +1,16 @@
 """Model API: ``build_model(cfg, ...)`` -> ``Model``, the surface the trainer
-and the launcher use. Port of the training half of ``repro.models.api``.
+and the launcher use. Port of the training half of ``repro.models.api``,
+for every family the JAX package trains (dense, moe, ssm, hybrid, encdec,
+vlm).
 
 ``kernels`` picks the mixer and loss implementations at build time:
 
-  * ``"cuda"``: ``gqa_flash`` (attention layers), ``ssd_chunked_kernel``
+  * ``"cuda"``: ``gqa_flash`` (GQA attention layers), ``ssd_chunked_kernel``
     (SSM layers) and ``fused_xent_sum``, whose wrappers launch the
     hand-written CUDA kernels on a CUDA device, and compute their plain
-    PyTorch versions on a CPU device (the CPU tests run this way);
+    PyTorch versions on a CPU device (the CPU tests run this way). MLA,
+    cross attention, the encoder and the MoE dispatch run plain PyTorch in
+    both modes, as they run outside any Pallas kernel in the JAX package;
   * ``"reference"``: the model's own plain paths, ``_attend_chunked``,
     ``ssm.ssd_chunked`` and ``chunked_xent``, as the JAX package's
     ``"reference"``.
@@ -32,7 +36,7 @@ class Model:
     cfg: ModelConfig
     module: T.Transformer
     kernels: str
-    init: Callable               # (seed) -> module, filled in place
+    init: Callable               # (seed, max_seq) -> module, filled in place
     loss_fn: Callable            # (batch) -> (total_loss, data_loss)
 
     def params(self) -> list:
@@ -43,7 +47,10 @@ def build_model(cfg: ModelConfig, *, kernels: str = "cuda",
                 param_dtype=torch.bfloat16, remat: bool = True,
                 device="cuda") -> Model:
     """``param_dtype`` is the compute dtype of weights and activations
-    (bf16 by default); norm scales, ψ and the SPC queue stay f32."""
+    (bf16 by default); norm scales, the MoE router, ψ and the SPC queue
+    stay f32. ``loss_fn(batch)`` reads ``batch["frontend_embeds"]`` for a
+    VLM or an enc-dec model. ``init(seed, max_seq)`` sizes an enc-dec
+    model's ``pos_embed`` to ``max_seq`` rows, as the JAX ``init`` does."""
     if kernels not in KERNEL_CHOICES:
         raise ValueError(f"kernels must be one of {KERNEL_CHOICES}, "
                          f"got {kernels!r}")
@@ -51,8 +58,8 @@ def build_model(cfg: ModelConfig, *, kernels: str = "cuda",
     module = T.Transformer(cfg, dtype=param_dtype, device=dev)
     use_kernels = kernels == "cuda"
 
-    def init(seed: int = 0):
-        return T.init_params(module, seed)
+    def init(seed: int = 0, max_seq: int = T.MAX_SEQ):
+        return T.init_params(module, seed, max_seq=max_seq)
 
     def loss_fn(batch):
         return T.lm_loss_fn(module, batch, remat=remat,

@@ -1,19 +1,34 @@
-"""Decoder-only stack for the dense and ssm families: parameters, forward,
-head and LM loss.
+"""Decoder stack (decoder-only, hybrid, enc-dec, VLM): layer plan,
+parameters, forward, head and LM loss.
 
-Port of the dense and ssm paths of ``repro.models.transformer``. The model
-is an ``nn.Module`` whose weights keep the JAX layout; its ``state_dict``
-names are ``embed``, ``final_norm``, ``head`` (untied only) and, per layer,
-``layers.{i}.ln1``, ``layers.{i}.mixer.*`` (attention ``wq, wk, wv, wo``;
-SSM ``in_proj, conv_w, conv_b, A_log, D, dt_bias, gnorm, out_proj``) and,
-where the layer has an MLP, ``layers.{i}.{ln2, mlp.{wg, wi, wo}}``
+Port of the training half of ``repro.models.transformer`` (serving's
+prefill and decode come later). The layer pattern of every configuration
+is periodic: ``first_dense`` prefix layers, then ``n_blocks`` blocks of
+``block_size()`` layers that repeat exactly (``stack_plan`` asserts it).
+A layer is a mixer (``attn`` with an optional window, ``mla`` or ``ssm``),
+an MLP (``swiglu``, ``gelu2``, ``moe`` or ``none``) and, in an enc-dec
+decoder, a cross-attention slot.
+
+The model is an ``nn.Module`` whose weights keep the JAX layout. Its
+``state_dict`` names are ``embed``, ``final_norm``, ``head`` (untied only)
+and ``layers.{i}.*`` for global layer i (the prefix first, then layer
+``first_dense + b·P + p`` of block b): ``ln1``, ``mixer.*`` (attention
+``wq, wk, wv, wo``; MLA ``wq, wkv_a, wk_b, wv_b, wo, kv_norm``; SSM
+``in_proj, conv_w, conv_b, A_log, D, dt_bias, gnorm, out_proj``), and
+where the layer has an MLP ``ln2`` and ``mlp.*`` (SwiGLU ``wg, wi, wo``;
+GELU ``wi, wo``; MoE ``router, wg, wi, wo`` and ``swg, swi, swo`` with
+shared experts), and in an enc-dec decoder ``ln_x`` and ``cross.{wq, wk,
+wv, wo}``. An enc-dec model adds ``encoder.{j}.*`` (attention and GELU
+layers), ``enc_final_norm``, ``enc_pos`` and ``pos_embed``
 (``repro_torch.convert`` maps them to and from the JAX tree).
 
-``remat`` recomputes each layer in the backward pass
-(``torch.utils.checkpoint``, one layer per checkpoint as the JAX package
-checkpoints one block), so under ``kernels="cuda"`` the mixer's kernel
-(attention or SSD) runs twice per layer per loss-and-gradient: once in the
-forward and once in the recomputation.
+``remat`` recomputes each decoder layer in the backward pass
+(``torch.utils.checkpoint``, one layer per checkpoint; the JAX package
+checkpoints one block of ``block_size()`` layers, the same values). So
+under ``kernels="cuda"`` each attention layer's ``gqa_flash`` and each SSM
+layer's ``ssd_scan`` run twice per loss-and-gradient: in the forward and
+in the recomputation. MLA, cross attention and the encoder run the plain
+``_attend_chunked`` in either mode, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -27,43 +42,79 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 
 LOSS_CHUNK = 512
-FAMILIES = ("dense", "ssm")
+MAX_SEQ = 4096                  # pos_embed rows of an enc-dec model by default
 
 
+# ---------------------------------------------------------------------------
+# layer plan
+# ---------------------------------------------------------------------------
 @dataclass(frozen=True)
 class LayerSpec:
-    mixer: str                   # 'attn' | 'ssm'
+    mixer: str                   # 'attn' | 'mla' | 'ssm'
     window: Optional[int]
-    mlp: str                     # 'swiglu' | 'none'
+    mlp: str                     # 'swiglu' | 'gelu2' | 'moe' | 'none'
+    cross: bool = False
 
 
-def _mixer_for(cfg) -> tuple:
+ENCODER_SPEC = LayerSpec("attn", None, "gelu2")
+
+
+def _mixer_for(cfg, i: int) -> tuple:
     if cfg.family == "ssm":
         return "ssm", None
-    return "attn", cfg.sliding_window
+    if cfg.family == "hybrid" and cfg.attn_every and not cfg._is_attn_layer(i):
+        return "ssm", None
+    if cfg.mla:
+        return "mla", None
+    window = cfg.sliding_window
+    if cfg.global_every and i % cfg.global_every == cfg.global_every - 1:
+        window = None                       # the block's last layer is global
+    return "attn", window
 
 
-def _mlp_for(cfg) -> str:
-    return "none" if cfg.d_ff == 0 else "swiglu"    # mamba2: mixer-only layers
+def _mlp_for(cfg, i: int) -> str:
+    if cfg._is_moe_layer(i):
+        return "moe"
+    if cfg.d_ff == 0:
+        return "none"                       # mamba2: mixer-only layers
+    return "gelu2" if cfg.family == "encdec" else "swiglu"
 
 
-def layer_spec(cfg) -> LayerSpec:
-    """The layer of the dense and ssm families, the same at every depth."""
-    mixer, window = _mixer_for(cfg)
-    return LayerSpec(mixer, window, _mlp_for(cfg))
+def layer_spec(cfg, i: int) -> LayerSpec:
+    mixer, window = _mixer_for(cfg, i)
+    return LayerSpec(mixer, window, _mlp_for(cfg, i),
+                     cross=cfg.family == "encdec")
 
 
 def stack_plan(cfg):
-    """-> (prefix_specs, block_specs, n_blocks); the dense and ssm families
-    have no prefix and a one-layer block."""
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-    return [], [layer_spec(cfg)], cfg.num_layers
+    """-> (prefix_specs, block_specs, n_blocks)."""
+    prefix = [layer_spec(cfg, i) for i in range(cfg.first_dense)]
+    P = cfg.block_size()
+    rest = cfg.num_layers - cfg.first_dense
+    assert rest % P == 0, (cfg.name, rest, P)
+    n_blocks = rest // P
+    block = [layer_spec(cfg, cfg.first_dense + p) for p in range(P)]
+    # the pattern must repeat exactly, as the JAX package's scan needs
+    for b in range(1, n_blocks):
+        for p in range(P):
+            assert layer_spec(cfg, cfg.first_dense + b * P + p) == block[p], \
+                (cfg.name, b, p)
+    return prefix, block, n_blocks
 
 
+def layer_specs(cfg) -> list:
+    """The spec of every decoder layer, in global order."""
+    prefix, block, n_blocks = stack_plan(cfg)
+    return prefix + block * n_blocks
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
 def _dense(shape, dtype, device):
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
@@ -80,6 +131,18 @@ def _attn_params(cfg, dtype, device):
             "wo": _dense((H * hd, d), dtype, device)}
 
 
+def _mla_params(cfg, dtype, device):
+    d, H = cfg.d_model, cfg.num_heads
+    r, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    dn, dv = cfg.qk_nope_head_dim, cfg.v_head_dim
+    return {"wq": _dense((d, H * (dn + dr)), dtype, device),
+            "wkv_a": _dense((d, r + dr), dtype, device),
+            "wk_b": _dense((r, H * dn), dtype, device),
+            "wv_b": _dense((r, H * dv), dtype, device),
+            "wo": _dense((H * dv, d), dtype, device),
+            "kv_norm": _f32((r,), device)}
+
+
 def _ssm_params(cfg, dtype, device):
     d, di, nh = cfg.d_model, cfg.d_inner, cfg.ssm_nheads
     cch = S.conv_channels(cfg)
@@ -94,48 +157,76 @@ def _ssm_params(cfg, dtype, device):
             "out_proj": _dense((di, d), dtype, device)}
 
 
+_MIXERS = {"attn": _attn_params, "mla": _mla_params, "ssm": _ssm_params}
+
+
+def _mlp_params(cfg, kind, dtype, device):
+    d, ff = cfg.d_model, cfg.d_ff
+    if kind == "moe":
+        return M.init_moe(cfg, dtype, device)
+    if kind == "gelu2":
+        return {"wi": _dense((d, ff), dtype, device),
+                "wo": _dense((ff, d), dtype, device)}
+    return {"wg": _dense((d, ff), dtype, device),
+            "wi": _dense((d, ff), dtype, device),
+            "wo": _dense((ff, d), dtype, device)}
+
+
 class Layer(nn.Module):
     def __init__(self, cfg, spec: LayerSpec, dtype, device):
         super().__init__()
         d = cfg.d_model
         self.spec = spec
         self.ln1 = _f32((d,), device)
-        if spec.mlp == "swiglu":
+        if spec.mlp != "none":
             self.ln2 = _f32((d,), device)
-        mixer = _attn_params if spec.mixer == "attn" else _ssm_params
-        self.mixer = nn.ParameterDict(mixer(cfg, dtype, device))
-        if spec.mlp == "swiglu":
-            self.mlp = nn.ParameterDict({
-                "wg": _dense((d, cfg.d_ff), dtype, device),
-                "wi": _dense((d, cfg.d_ff), dtype, device),
-                "wo": _dense((cfg.d_ff, d), dtype, device)})
+        self.mixer = nn.ParameterDict(_MIXERS[spec.mixer](cfg, dtype, device))
+        if spec.mlp != "none":
+            self.mlp = nn.ParameterDict(_mlp_params(cfg, spec.mlp, dtype,
+                                                    device))
+        if spec.cross:
+            self.ln_x = _f32((d,), device)
+            self.cross = nn.ParameterDict(_attn_params(cfg, dtype, device))
 
 
 class Transformer(nn.Module):
     """Parameters of the stack, allocated uninitialized; ``init_params``
-    fills them."""
+    fills them (and allocates an enc-dec model's ``pos_embed``, whose rows
+    it sizes)."""
 
     def __init__(self, cfg, *, dtype=torch.bfloat16, device="cuda"):
         super().__init__()
-        _, block, n_blocks = stack_plan(cfg)
         Vp, d = cfg.padded_vocab, cfg.d_model
         self.cfg = cfg
         self.embed = _dense((Vp, d), dtype, device)
         self.final_norm = _f32((d,), device)
         self.head = None if cfg.tie_embeddings else _dense((d, Vp), dtype, device)
-        self.layers = nn.ModuleList(Layer(cfg, block[0], dtype, device)
-                                    for _ in range(n_blocks))
+        self.layers = nn.ModuleList(Layer(cfg, spec, dtype, device)
+                                    for spec in layer_specs(cfg))
+        if cfg.family == "encdec":
+            self.encoder = nn.ModuleList(
+                Layer(cfg, ENCODER_SPEC, dtype, device)
+                for _ in range(cfg.encoder_layers))
+            self.enc_final_norm = _f32((d,), device)
+            self.enc_pos = _dense((cfg.encoder_seq, d), dtype, device)
 
 
 @torch.no_grad()
-def init_params(model: Transformer, seed: int = 0) -> Transformer:
+def init_params(model: Transformer, seed: int = 0,
+                max_seq: int = MAX_SEQ) -> Transformer:
     """Fill ``model`` from a ``torch.Generator`` seeded with ``seed`` on the
-    model's device: dense weights normal·1/√fan_in (drawn in f32, then cast),
-    norm scales and biases zero, and the SSM leaves as ``init_ssm`` sets
-    them: ``A_log = log(linspace(1, 16, nh))``, ``D = 1``, ``dt_bias =
-    log(expm1(0.01))``. The random draws are not the JAX package's (tests
-    carry JAX weights over with ``repro_torch.convert``)."""
+    model's device: weights of two or more dims (the MoE router too) normal
+    · 1/√(shape[-2]) (drawn in f32, then cast), norm scales and biases
+    zero, and the SSM leaves as ``init_ssm`` sets them: ``A_log =
+    log(linspace(1, 16, nh))``, ``D = 1``, ``dt_bias = log(expm1(0.01))``.
+    An enc-dec model's ``pos_embed`` is allocated here with ``max(max_seq,
+    1)`` rows, as the JAX ``init_params`` sizes it. The random
+    draws are not the JAX package's (tests carry JAX weights over with
+    ``repro_torch.convert``)."""
     dev = model.embed.device
+    if model.cfg.family == "encdec":
+        model.pos_embed = _dense((max(max_seq, 1), model.cfg.d_model),
+                                 model.embed.dtype, dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
     for name, p in model.named_parameters():
         if p.dim() < 2:
@@ -158,35 +249,92 @@ def init_params(model: Transformer, seed: int = 0) -> Transformer:
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
-def apply_layer(layer: Layer, cfg, x, positions, use_kernels: bool = False):
-    """``use_kernels`` routes the mixer through its kernel (``gqa_flash``
-    or ``ssd_chunked_kernel``); otherwise the plain paths run."""
+def _apply_mlp(layer: Layer, cfg, h):
+    """-> (y, aux); aux is 0.0 but for an MoE layer."""
+    kind = layer.spec.mlp
+    if kind == "moe":
+        return M.moe_forward(layer.mlp, cfg, h)
+    if kind == "gelu2":
+        return L.gelu(h @ layer.mlp["wi"]) @ layer.mlp["wo"], 0.0
+    return L.mlp(layer.mlp, h), 0.0
+
+
+def apply_layer(layer: Layer, cfg, x, positions, enc_out=None,
+                use_kernels: bool = False):
+    """One decoder layer over the full sequence -> (x, aux).
+    ``use_kernels`` routes an ``attn`` mixer through ``gqa_flash`` and an
+    ``ssm`` mixer through ``ssd_chunked_kernel``; otherwise, and for MLA,
+    the plain paths run."""
     spec = layer.spec
     h = L.rms_norm(x, layer.ln1, cfg.norm_eps)
     if spec.mixer == "attn":
         o = L.attn_forward(layer.mixer, cfg, h, positions, window=spec.window,
+                           use_rope=cfg.family != "encdec",
                            use_kernel=use_kernels)
+    elif spec.mixer == "mla":
+        o = L.mla_forward(layer.mixer, cfg, h, positions)
     else:
         o = S.ssm_forward(layer.mixer, cfg, h, use_kernel=use_kernels)
     x = x + o
+    if spec.cross:
+        hx = L.rms_norm(x, layer.ln_x, cfg.norm_eps)
+        x = x + L.cross_attn_forward(layer.cross, cfg, hx, enc_out)
     if spec.mlp == "none":
-        return x
-    h = L.rms_norm(x, layer.ln2, cfg.norm_eps)
-    return x + L.mlp(layer.mlp, h)
+        return x, 0.0
+    y, aux = _apply_mlp(layer, cfg, L.rms_norm(x, layer.ln2, cfg.norm_eps))
+    return x + y, aux
 
 
-def forward(model: Transformer, tokens, *, remat=True, use_kernels=False):
-    """tokens (B, S) -> final hidden (B, S, d)."""
+def encoder_forward(model: Transformer, frames):
+    """Whisper encoder. frames: (B, Se, d) stub embeddings -> (B, Se, d);
+    ``enc_pos`` added, non-causal plain attention without RoPE, GELU MLPs."""
+    cfg = model.cfg
+    x = frames + model.enc_pos[None, :frames.shape[1]]
+    B, Se, _ = x.shape
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    for lp in model.encoder:
+        h = L.rms_norm(x, lp.ln1, cfg.norm_eps)
+        q = (h @ lp.mixer["wq"]).reshape(B, Se, H, hd)
+        k = (h @ lp.mixer["wk"]).reshape(B, Se, K, hd)
+        v = (h @ lp.mixer["wv"]).reshape(B, Se, K, hd)
+        o = L._attend_chunked(q, k, v, causal=False, window=None)
+        x = x + o.reshape(B, Se, H * hd) @ lp.mixer["wo"]
+        y, _ = _apply_mlp(lp, cfg, L.rms_norm(x, lp.ln2, cfg.norm_eps))
+        x = x + y
+    return L.rms_norm(x, model.enc_final_norm, cfg.norm_eps)
+
+
+def _embed(model: Transformer, tokens, frontend_embeds=None):
+    """Token embeddings; a VLM's frontend embeddings overwrite the first
+    ``n`` positions, an enc-dec model adds ``pos_embed[:S]``."""
+    cfg = model.cfg
+    x = F.embedding(tokens.long(), model.embed)
+    if cfg.family == "vlm" and frontend_embeds is not None:
+        n = frontend_embeds.shape[1]
+        x = torch.cat([frontend_embeds.to(x.dtype), x[:, n:]], dim=1)
+    if cfg.family == "encdec":
+        x = x + model.pos_embed[None, :tokens.shape[1]]
+    return x
+
+
+def forward(model: Transformer, tokens, frontend_embeds=None, *, remat=True,
+            use_kernels=False):
+    """tokens (B, S) -> (final hidden (B, S, d), aux summed over layers)."""
     cfg = model.cfg
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
-    x = F.embedding(tokens.long(), model.embed)
+    enc_out = None
+    if cfg.family == "encdec":
+        enc_out = encoder_forward(model, frontend_embeds)
+    x = _embed(model, tokens, frontend_embeds)
+    aux_total = 0.0
     for layer in model.layers:
         if remat and torch.is_grad_enabled():
-            x = checkpoint(apply_layer, layer, cfg, x, positions, use_kernels,
-                           use_reentrant=False)
+            x, aux = checkpoint(apply_layer, layer, cfg, x, positions, enc_out,
+                                use_kernels, use_reentrant=False)
         else:
-            x = apply_layer(layer, cfg, x, positions, use_kernels)
-    return L.rms_norm(x, model.final_norm, cfg.norm_eps)
+            x, aux = apply_layer(layer, cfg, x, positions, enc_out, use_kernels)
+        aux_total = aux_total + aux
+    return L.rms_norm(x, model.final_norm, cfg.norm_eps), aux_total
 
 
 def head_weight(model: Transformer):
@@ -230,18 +378,24 @@ def chunked_xent(model: Transformer, h, labels, mask):
     return tot, cnt
 
 
-def lm_loss_fn(model: Transformer, batch, *, remat=True, use_kernels=False):
+def lm_loss_fn(model: Transformer, batch, *, aux_weight=0.01, remat=True,
+               use_kernels=False):
     """Next-token cross-entropy averaged over valid positions.
 
-    Labels are the tokens rolled left by one, the last position masked.
-    Returns f32 ``(total_loss, data_loss)``; the dense and ssm families
-    have no auxiliary loss, so the two are the same tensor."""
+    Labels are the tokens rolled left by one, the last position masked (and
+    a VLM's image positions). ``batch`` holds ``tokens`` and, for a VLM or
+    an enc-dec model, ``frontend_embeds``. Returns f32 ``(total_loss,
+    data_loss)``: total = data + ``aux_weight`` · the MoE layers' summed
+    aux (total is data where there is no MoE layer). ψ is total."""
     cfg = model.cfg
     tokens = batch["tokens"]
-    h = forward(model, tokens, remat=remat, use_kernels=use_kernels)
+    h, aux = forward(model, tokens, batch.get("frontend_embeds"), remat=remat,
+                     use_kernels=use_kernels)
     labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1).to(torch.int32)
     mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
     mask[:, -1] = 0.0
+    if cfg.family == "vlm":
+        mask[:, :cfg.num_image_tokens] = 0.0
     if use_kernels:
         from repro_torch.kernels.fused_xent import fused_xent_sum
         tot, cnt = fused_xent_sum(h, head_weight(model), labels, mask,
@@ -249,4 +403,6 @@ def lm_loss_fn(model: Transformer, batch, *, remat=True, use_kernels=False):
     else:
         tot, cnt = chunked_xent(model, h, labels, mask)
     loss = (tot / torch.clamp(cnt, min=1.0)).to(torch.float32)
-    return loss, loss
+    if not torch.is_tensor(aux):
+        return loss, loss
+    return loss + aux_weight * aux.to(torch.float32), loss

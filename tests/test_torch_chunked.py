@@ -8,7 +8,8 @@ Mirrors the single-device half of ``tests/test_chunked.py``:
     card captures into a CUDA graph) reproduces the port's per-step engine's
     losses, limits, ψ̄, accelerate decisions, sub-iteration counts and final
     params exactly (``assert_array_equal``) for K ∈ {1, 4, 32} over 8 FCPR
-    epochs, on the regression problem and on the tiny transformer;
+    epochs, on the regression problem and on the tiny transformer and
+    MoE (``paper-moe-tiny``: routing, dispatch and the aux term in ψ);
   * **JAX parity**: it matches JAX ``make_chunked_train_step`` on the same
     inputs with the same decisions and losses within 1e-5 relative, the
     trajectory tolerance of ``tests/test_torch_isgd.py``;
@@ -79,8 +80,8 @@ def _regression(batch_size=8, n_batches=4, dim=6, seed=0):
     return make, sampler, icfg
 
 
-def _tiny_transformer():
-    cfg = zoo_config("transformer", "tiny")
+def _tiny_transformer(model="transformer"):
+    cfg = zoo_config(model, "tiny")
     data = make_lm_tokens(0, 8, 64, cfg.vocab_size)
     sampler = FCPRSampler(data, batch_size=2, seed=1)
     icfg = ISGDConfig(n_batches=4, k_sigma=-3.0, stop=3)
@@ -93,7 +94,8 @@ def _tiny_transformer():
     return make, sampler, icfg
 
 
-PROBLEMS = {"regression": _regression, "tiny-transformer": _tiny_transformer}
+PROBLEMS = {"regression": _regression, "tiny-transformer": _tiny_transformer,
+            "tiny-moe": lambda: _tiny_transformer("moe")}
 
 
 def _lr_fn(psi_bar):
@@ -313,7 +315,7 @@ def test_conditional_nodes_required(monkeypatch):
 def test_launcher_chunk_steps_on_cpu():
     r = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
-         "--tier", "tiny", "--steps", "6", "--seq", "32", "--n-seqs", "16",
+         "--model", "transformer", "--tier", "tiny", "--steps", "6", "--seq", "32", "--n-seqs", "16",
          "--precision", "f32", "--chunk-steps", "4"],
         cwd=ROOT, env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
         capture_output=True, text=True, timeout=120)

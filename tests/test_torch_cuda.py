@@ -102,7 +102,8 @@ def test_attention_kernel_matches_plain(cuda, shape, dtype):
 def test_attention_edges_match_plain(cuda, shape, dtype):
     """The edges of the bf16 wgmma + TMA route: every head dim (each with
     its own TMA swizzle), S = 100 and 192, non-causal, a window that starts
-    inside a key tile, and the training shape's 16/8 GQA."""
+    inside a key tile, and the training paths' shapes: 16/8 and 12/4 GQA at
+    S 1024, hd 32 with a window of 16."""
     B, S, H, K, hd, causal, window = shape
     rng = np.random.RandomState(0)
     q, k, v = (torch.from_numpy(rng.randn(B, S, n, hd).astype(np.float32))
@@ -120,7 +121,8 @@ def test_attention_edges_match_plain(cuda, shape, dtype):
 @pytest.mark.parametrize("shape", XENT_EDGES, ids=str)
 def test_xent_edges_match_plain(cuda, shape, dtype):
     """The same for ``fused_xent``: a large tied head (the transposed view,
-    a K-major operand), N = 96 and 384, d = 32 and 48, padded vocab."""
+    a K-major operand), N = 96 and 384, d = 32 and 48, padded vocab, and
+    the reduced architectures' and paper-moe's heads (d 256 and 768)."""
     N, d, Vp, V, tied = shape
     h, w, y = _xent_inputs(N, d, Vp, V, dtype)
     if tied:
@@ -231,7 +233,8 @@ def test_ssd_kernel_matches_plain(cuda, shape, dt_shift, dtype):
 def test_ssd_edges_match_plain(cuda, edge, dtype):
     """The edges of the bf16 wgmma + TMA route (``numerics.SSD_EDGES``):
     every head dim, state sizes 8 to 128, chunks of 25 to 256, two groups,
-    head slices of unequal size, and the training shape at init dt."""
+    head slices of unequal size, the reduced Jamba/Mamba2 mixer (hd 16,
+    chunk 16, ds 32) and the training shape at init dt."""
     *shape, init_dt = edge
     test_ssd_kernel_matches_plain(cuda, tuple(shape), DT_INIT if init_dt else 0.0,
                                   dtype)
@@ -315,7 +318,7 @@ def _lenet8x8():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("model", ["transformer", "ssm", "lenet-8x8"])
+@pytest.mark.parametrize("model", ["transformer", "moe", "ssm", "lenet-8x8"])
 def test_chunked_graph_matches_eager(cuda, model):
     """16 steps (K = 4) of the CUDA-graph engine against the eager
     per-step engine from the same init on the same card: the same
@@ -362,7 +365,7 @@ def test_chunked_graph_matches_eager(cuda, model):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("model", ["transformer", "ssm"])
+@pytest.mark.parametrize("model", ["transformer", "moe", "ssm"])
 def test_device_launch_counts_follow_graph_replays(cuda, model):
     """``launch_count`` counts a kernel at every replay of the fused
     engine's graph, and in an IF node only where the node's body runs: over
@@ -609,3 +612,101 @@ def test_spans_in_capture_add_no_launch(cuda):
     assert counts == plain_counts and counts["fused_xent"] > 0
     assert spanned.losses == plain.losses
     assert spanned.sub_iters == plain.sub_iters and sum(plain.sub_iters) > 0
+
+
+# ---------------------------------------------------------------------------
+# the MoE layer and the reduced architectures on the card
+# ---------------------------------------------------------------------------
+def _moe_inputs(dtype=torch.bfloat16, B=4, S=256, seed=0):
+    """``paper-moe``'s MoE layer (d 768, 8 experts top-2, ff 1536, cf 1.25,
+    so that slots are dropped) with two shared experts added, weights drawn
+    as the model's init draws them, and x (B, S, d)."""
+    import dataclasses
+
+    from repro_torch.models.moe import init_moe
+    cfg = dataclasses.replace(zoo_config("moe", "base"), num_shared_experts=2)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    p = {}
+    for k, w in init_moe(cfg, dtype, "cuda").items():
+        r = torch.randn(w.shape, generator=gen, device="cuda")
+        p[k] = (r / math.sqrt(w.shape[-2])).to(w.dtype).requires_grad_(True)
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device="cuda")
+    return cfg, p, x.to(dtype)
+
+
+@pytest.mark.cuda
+def test_moe_forward_has_no_host_sync(cuda):
+    """``moe_forward`` and its backward read nothing back to the host, so
+    the fused engine can capture them: with sync debug mode at "error", any
+    synchronising call raises."""
+    from repro_torch.models.moe import moe_forward
+    cfg, p, x = _moe_inputs()
+    y, aux = moe_forward(p, cfg, x)                      # warm-up, lazy init
+    torch.autograd.grad((y.float().sum() + aux), list(p.values()))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, aux = moe_forward(p, cfg, x)
+        grads = torch.autograd.grad((y.float().sum() + aux), list(p.values()))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+@pytest.mark.cuda
+def test_moe_forward_graph_replay_is_bit_exact(cuda):
+    """A CUDA graph of ``moe_forward`` (routing, dispatch, expert products,
+    combine, aux), replayed, equals the eager run bit for bit."""
+    from repro_torch.models.moe import moe_forward
+    cfg, p, x = _moe_inputs()
+    p = {k: v.detach() for k, v in p.items()}
+    with torch.no_grad():
+        ref_y, ref_aux = moe_forward(p, cfg, x)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            moe_forward(p, cfg, x)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            y, aux = moe_forward(p, cfg, x)
+        for _ in range(2):
+            graph.replay()
+        torch.cuda.synchronize()
+    assert torch.equal(y, ref_y) and torch.equal(aux, ref_aux)
+
+
+@pytest.mark.cuda
+def test_reduced_jamba_runs_ssd_kernel(cuda):
+    """Reduced Jamba (7 of 8 layers SSM, hd 16, chunk 16, d_state 32) in
+    bf16: one loss through the kernels launches ``ssd_scan`` twice per SSM
+    layer (forward and the recomputation) and ``flash_attention`` twice for
+    its attention layer, and stays within the bf16 tolerances of the plain
+    run from the same init: the loss within ``fused_xent``'s, layer 0's
+    mixer output within ``ssd_scan``'s."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.ssm import ssm_forward
+    cfg = get_config("jamba_v0_1_52b").reduced()
+    assert (cfg.ssm_headdim, cfg.ssm_chunk, cfg.ssm_state) == (16, 16, 32)
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, size=(2, 64)).astype(np.int32)).cuda()
+    loss = {}
+    for kernels in ("cuda", "reference"):
+        m = build_model(cfg, kernels=kernels, param_dtype=torch.bfloat16)
+        m.init(0)
+        n0 = (ssd_intra_chunk.launches, flash_attention.launches)
+        total, _ = m.loss_fn({"tokens": tokens})
+        torch.autograd.grad(total, m.params())
+        loss[kernels] = float(total.detach())
+        if kernels == "cuda":
+            assert ssd_intra_chunk.launches - n0[0] == 2 * 7
+            assert flash_attention.launches - n0[1] == 2 * 1
+            h = torch.from_numpy(np.random.RandomState(2).randn(
+                2, 64, cfg.d_model).astype(np.float32)).cuda().bfloat16()
+            p = m.module.layers[0].mixer
+            with torch.no_grad():
+                _close(ssm_forward(p, cfg, h, use_kernel=True),
+                       ssm_forward(p, cfg, h, use_kernel=False),
+                       _tol("ssd_scan", torch.bfloat16))
+    rtol = _tol("fused_xent", torch.bfloat16)[0]
+    assert abs(loss["cuda"] - loss["reference"]) <= rtol * abs(loss["reference"])

@@ -23,17 +23,22 @@ def test_port_imports_no_jax_and_no_repro():
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
         "       or n == 'repro' or n.startswith('repro.')]\n"
         "n = len([n for n in sys.modules if n.startswith('repro_torch')])\n"
+        "from repro_torch.configs import ARCH_IDS\n"
+        "need = ['repro_torch.models.moe'] + ['repro_torch.configs.' + a\n"
+        "                                     for a in ARCH_IDS]\n"
+        "print('MISSING', [m for m in need if m not in sys.modules])\n"
         "print('BAD', bad, 'N', n)\n")
     r = _run(["-c", code])
     assert r.returncode == 0, r.stderr
     assert "BAD [] " in r.stdout, r.stdout
-    assert int(r.stdout.split("N")[-1]) >= 20
+    assert "MISSING []" in r.stdout, r.stdout
+    assert int(r.stdout.split("N")[-1]) >= 60
 
 
 def test_launcher_runs_on_cpu():
     r = _run(["-m", "repro_torch.launch.train", "--device", "cpu",
-              "--tier", "tiny", "--steps", "6", "--seq", "32",
-              "--n-seqs", "16", "--precision", "f32"])
+              "--model", "transformer", "--tier", "tiny", "--steps", "6",
+              "--seq", "32", "--n-seqs", "16", "--precision", "f32"])
     assert r.returncode == 0, r.stderr
     lines = r.stdout.splitlines()
     assert any(l.startswith("step    1 loss=") for l in lines), r.stdout

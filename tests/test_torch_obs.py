@@ -389,7 +389,9 @@ def _launch(capsys, *extra):
     return capsys.readouterr().out.splitlines()
 
 
-@pytest.mark.parametrize("extra", [(), ("--chunk-steps", "4"),
+@pytest.mark.parametrize("extra", [("--model", "transformer"),
+                                   ("--model", "transformer",
+                                    "--chunk-steps", "4"),
                                    ("--model", "ssm")],
                          ids=["transformer", "chunked", "ssm"])
 def test_launcher_obs_dir_reconciles(tmp_path, capsys, extra):
@@ -412,9 +414,9 @@ def test_launcher_obs_dir_reconciles(tmp_path, capsys, extra):
 
 
 @pytest.mark.parametrize("extra,spans", [
-    ((), ("obs/psi_push", "obs/accelerate")),
-    (("--chunk-steps", "4"), ("obs/chunk_scan", "obs/psi_push",
-                              "obs/accelerate")),
+    (("--model", "transformer"), ("obs/psi_push", "obs/accelerate")),
+    (("--model", "transformer", "--chunk-steps", "4"),
+     ("obs/chunk_scan", "obs/psi_push", "obs/accelerate")),
 ], ids=["per-step", "chunked"])
 def test_launcher_profile_dir_writes_the_spans(tmp_path, capsys, extra, spans):
     d = str(tmp_path / "prof")
