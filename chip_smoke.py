@@ -44,8 +44,17 @@ the two runs bit-identical), ``micro_batches`` captures the fused step at
 spans, and ``eval_cnn`` trains ``cifar-quick`` (32 × 32 × 3) with ISGD and
 with SGD, evaluating every epoch with measured walls, and the ISGD leg
 again through the fused engine, whose Alg. 2 trips run in IF nodes around
-cuDNN convolutions. Each phase prints one JSON line; the last two lines
-are the kernels summary and ``{"ok": true, "device": {...}}``.
+cuDNN convolutions. Then the batch schedules and checkpoints on the
+transformer path: ``sched`` trains with ``--schedule fcpr`` through the
+fused engine (bit for bit the unscheduled fused run) and with ``--schedule
+loss-prop`` per-step and fused (bit for bit each other, batch picks
+included; the selection inside the graph, the launches counted on the
+device), and ``resume`` kills a ``loss-prop`` run at a checkpoint (step 6,
+K = 3) and resumes it in a fresh process with K = 4, on the uninterrupted
+run's trajectory and final state bit for bit (each run a child process of
+this script, ``--launch OUT ARGS``). Each phase prints one JSON line; the
+last two lines are the kernels summary and ``{"ok": true, "device":
+{...}}``.
 
 Nothing is caught: any failure exits nonzero before the last line. Without
 a CUDA device, or outside a checkout of the repository, it exits nonzero
@@ -677,7 +686,7 @@ def phase_chunked(model: str, per_step: dict, k: int = CHUNK):
                          res, per_step["log"], k, config=zoo_base(model).name)
     if model == "transformer" and not sum(out["sub_iters"]):
         raise SystemExit("no Alg. 2 trip ran inside the graph")
-    return out["ms_per_step_after_first_chunk"]
+    return out
 
 
 def zoo_base(model: str):
@@ -895,9 +904,9 @@ def run_cnn_chunked(steps: int = CNN_STEPS, profiler=None) -> dict:
     chunk.prepare(state, params, ring.arrays)
     with profiler if profiler is not None else contextlib.nullcontext():
         t0 = time.perf_counter()
-        state, steps, log = _drive_chunks(chunk, state, params, ring, steps,
-                                          CHUNK, t0,
-                                          on_chunk=getattr(profiler, "step", None))
+        (state, params), steps, log, _ = _drive_chunks(
+            chunk, (state, params), ring, steps, CHUNK, t0,
+            on_chunk=getattr(profiler, "step", None))
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
     return {"log": log, "state": state, "seconds": dt, "steps": steps,
@@ -1322,10 +1331,210 @@ def phase_chunked_arch():
                              f"{launches} != expected {expect}")
 
 
+# ---------------------------------------------------------------------------
+# batch schedules and checkpoints
+# ---------------------------------------------------------------------------
+SCHED_STEPS = 12
+RESUME_KILL, RESUME_K0, RESUME_K1 = 6, 3, 4  # kill at a K=3 boundary, resume K=4
+RESUME_STEPS = 14                          # 6 + two chunks of 4: mid-chunk resume
+# paper-transformer's unscheduled ms/step as recorded before schedules were
+# added (PERF.md; NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
+RECORDED_MS = {"per-step": 299.27, "fused": 287.87}
+LOG_KEYS = ("losses", "accelerated", "sub_iters", "batch_idx")
+
+
+def sequences(res: dict, start: int = 0, n: int = None) -> dict:
+    """A launcher run's per-step sequences (``LOG_KEYS``), steps
+    ``start..start+n-1`` of its log."""
+    log = res["log"]
+    out = {k: getattr(log, k) for k in LOG_KEYS[:3]}
+    out["batch_idx"] = res["batch_idx"]
+    end = None if n is None else start + n
+    return {k: v[start:end] for k, v in out.items()}
+
+
+def phase_sched(per_step: dict, chunked: dict):
+    """Batch schedules on the transformer path (``--schedule``), through
+    the launcher: ``fcpr`` through the fused engine (K = 4, 12 steps) must
+    equal the unscheduled fused run of ``chunked`` bit for bit (losses,
+    accelerate and sub_iters sequences); ``loss-prop`` per-step (14 steps:
+    the resume phase's reference) and fused (K = 4, 12 steps) must agree bit
+    for bit on their 12 common steps, batch picks included, sweep 0..n_b−1
+    first and visit every batch. The fused ``loss-prop`` run's launches are
+    counted on the device: selection, table update and gather sit in its
+    graph, so they must be exactly the unscheduled path's per evaluation.
+    -> the per-step ``loss-prop`` run's result."""
+    from repro_torch.launch import train as launcher
+    t0 = time.perf_counter()
+    fused_args = ["--chunk-steps", str(CHUNK)]
+    fcpr = launcher.run(launcher.parse_args(
+        train_args("transformer", SCHED_STEPS) + ["--schedule", "fcpr"]
+        + fused_args), fused=True)
+    fcpr_same = (fcpr["log"].losses == chunked["losses"]
+                 and fcpr["log"].accelerated == chunked["accelerated"]
+                 and fcpr["log"].sub_iters == chunked["sub_iters"])
+    lp = ["--schedule", "loss-prop"]
+    ref = launcher.main(train_args("transformer", RESUME_STEPS) + lp)
+    args = launcher.parse_args(train_args("transformer", SCHED_STEPS) + lp
+                               + fused_args)
+    fused, launches = device_counted(
+        lambda p: launcher.run(args, fused=True, profiler=p))
+    log, ref_log = fused["log"], ref["log"]
+    picks = fused["batch_idx"]
+    n_b = 32 // 8
+    evals = fused["steps"] + int(fused["state"].sub_iters)
+    expect = {k: n * evals for k, n in
+              launches_per_eval(zoo_base("transformer")).items()}
+    out = dict(config=zoo_base("transformer").name, steps=SCHED_STEPS,
+               chunk_steps=CHUNK, fcpr_equals_unscheduled=fcpr_same,
+               fcpr_losses=fcpr["log"].losses,
+               loss_prop_per_step_equals_fused=(
+                   sequences(fused) == sequences(ref, 0, SCHED_STEPS)),
+               batch_idx=picks, losses=log.losses,
+               accelerated=log.accelerated, sub_iters=log.sub_iters,
+               visits=np.bincount(picks, minlength=n_b).tolist(),
+               launches=launches, expected_launches=expect,
+               ms_per_step={
+                   "fcpr_fused": ms_after(fcpr["log"], CHUNK),
+                   "loss_prop_fused": ms_after(log, CHUNK),
+                   "loss_prop_per_step": ms_after(ref_log, 1),
+                   "unscheduled_per_step": ms_after(per_step["log"], 1),
+                   "unscheduled_fused": chunked["ms_per_step_after_first_chunk"],
+                   "recorded_unscheduled": RECORDED_MS},
+               # the runs differ in Alg. 2 trips: ms per evaluation (a step
+               # or a trip) over the same steps sets them side by side
+               ms_per_eval={
+                   "fcpr_fused": ms_per_eval(fcpr["log"], CHUNK),
+                   "loss_prop_fused": ms_per_eval(log, CHUNK),
+                   "loss_prop_per_step": ms_per_eval(ref_log, 1),
+                   "unscheduled_per_step": ms_per_eval(per_step["log"], 1)},
+               capture_seconds=fused["capture_seconds"],
+               seconds=time.perf_counter() - t0)
+    emit("sched", **out)
+    if not fcpr_same:
+        raise SystemExit("sched: fcpr through the fused engine differs from "
+                         "the unscheduled fused run")
+    if not out["loss_prop_per_step_equals_fused"]:
+        raise SystemExit("sched: loss-prop per-step and fused differ")
+    if picks[:n_b] != list(range(n_b)) or min(out["visits"]) == 0:
+        raise SystemExit(f"sched: warm-up sweep or visits wrong: {picks}")
+    if launches != expect:
+        raise SystemExit(f"sched: device launches {launches} != expected "
+                         f"{expect}")
+    return ref
+
+
+def ms_per_eval(log, first: int) -> float:
+    """ms per loss-and-gradient evaluation after the first ``first`` steps,
+    by the log's walls (each step one, each Alg. 2 trip one more)."""
+    evals = len(log.wall) - first + sum(log.sub_iters[first:])
+    return (log.wall[-1] - log.wall[first - 1]) / evals * 1e3
+
+
+def launch_child(out: str, argv: list):
+    """``chip_smoke.py --launch OUT ARGV...``: the launcher in a process of
+    its own (``repro_torch.launch.train.main(ARGV)``); its log goes to OUT
+    as JSON (exact: JSON round-trips every float)."""
+    torch.backends.cuda.matmul.allow_tf32 = False   # as the parent runs
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.launch import train as launcher
+    res = launcher.main(argv)
+    with open(out, "w") as fh:
+        json.dump({"start": res["start"], "steps": res["steps"],
+                   "seconds": res["seconds"],
+                   "capture_seconds": res["capture_seconds"],
+                   **sequences(res)}, fh)
+
+
+def run_child(argv: list, out: str) -> dict:
+    subprocess.run([sys.executable, os.path.abspath(__file__), "--launch",
+                    out] + argv, check=True)
+    with open(out) as fh:
+        return json.load(fh)
+
+
+def phase_resume(ref: dict):
+    """Kill and resume on the transformer path, each run a fresh process of
+    the launcher: ``loss-prop`` with ``--chunk-steps 3 --checkpoint-every
+    6`` to step 6 (the checkpoint), then ``--resume --chunk-steps 4`` to
+    step 14, so the resumed chunks start mid-grid. Every step logged after
+    the kill (loss, accelerate, sub_iters, batch pick) must equal ``ref``'s,
+    the uninterrupted per-step run of ``phase_sched``, and the checkpoint
+    the resumed run writes at step 14 must hold ``ref``'s final params,
+    ISGD state and policy table bit for bit (array by array against
+    ``pack_engine_state`` of ``ref``). The branch must fire after the kill.
+    The checkpoint's bytes and the launcher's save and restore seconds come
+    from its ``--obs-dir`` events. The directory is removed afterwards."""
+    import tempfile
+
+    from repro_torch.obs import read_jsonl
+    from repro_torch.train import checkpoints as CK
+    t0 = time.perf_counter()
+    base = train_args("transformer") + ["--schedule", "loss-prop",
+                                        "--checkpoint-every", str(RESUME_KILL)]
+    with tempfile.TemporaryDirectory(prefix="resume_", dir=ROOT) as d:
+        ck = os.path.join(d, "ckpt")
+        legs = []
+        for i, extra in enumerate((
+                ["--steps", str(RESUME_KILL), "--chunk-steps", str(RESUME_K0)],
+                ["--steps", str(RESUME_STEPS), "--chunk-steps", str(RESUME_K1),
+                 "--resume"])):
+            obs = os.path.join(d, f"obs{i}")
+            legs.append(run_child(base + extra + ["--checkpoint-dir", ck,
+                                                  "--obs-dir", obs],
+                                  os.path.join(d, f"log{i}.json")))
+            legs[-1]["events"] = [
+                dict(r["data"], event=r["name"])
+                for r in read_jsonl(os.path.join(obs, "metrics.p0.jsonl"))
+                if r["kind"] == "event" and r["name"].startswith("checkpoint.")]
+        saved = sorted(os.listdir(ck))
+        with np.load(os.path.join(ck, f"ckpt_{RESUME_STEPS:08d}.npz")) as f:
+            got = {k: f[k] for k in f.files if k != "__meta__"}
+        model = ref["model"]
+        tree, _ = CK.pack_engine_state(
+            params=model.params(), state=ref["state"], step=RESUME_STEPS,
+            layout=CK.layout_for(model.module), sched_state=ref["sched_state"])
+        want = CK.tree_arrays(tree)
+        differ = sorted(k for k in set(want) | set(got)
+                        if k not in want or k not in got
+                        or not np.array_equal(want[k], got[k]))
+        kill_bytes = os.path.getsize(os.path.join(
+            ck, f"ckpt_{RESUME_KILL:08d}.npz"))
+    first, resumed = legs
+    after = sequences(ref, RESUME_KILL, RESUME_STEPS - RESUME_KILL)
+    same = all(resumed[k] == after[k] for k in LOG_KEYS)
+    save = next(e for e in first["events"] if e["event"] == "checkpoint.save")
+    restore = next(e for e in resumed["events"]
+                   if e["event"] == "checkpoint.restore")
+    out = dict(config=zoo_base("transformer").name, kill_step=RESUME_KILL,
+               chunk_steps=[RESUME_K0, RESUME_K1], resumed_from=resumed["start"],
+               last_step=resumed["steps"], saved_steps=saved,
+               log_after_kill_equal=same, losses_after_kill=resumed["losses"],
+               accelerated_after_kill=resumed["accelerated"],
+               branch_fired_after_kill=any(resumed["accelerated"]),
+               state_arrays=len(want), state_arrays_differing=differ,
+               checkpoint_bytes=kill_bytes, save_seconds=save["seconds"],
+               restore_seconds=restore["seconds"],
+               seconds=time.perf_counter() - t0)
+    emit("resume", **out)
+    if resumed["start"] != RESUME_KILL or resumed["steps"] != RESUME_STEPS:
+        raise SystemExit(f"resume: ran {resumed['start']}..{resumed['steps']}")
+    if not same:
+        raise SystemExit("resume: the resumed run's log differs from the "
+                         "uninterrupted run's")
+    if differ:
+        raise SystemExit(f"resume: final state differs at {differ[:8]}")
+    if not out["branch_fired_after_kill"]:
+        raise SystemExit("resume: the accelerate branch never fired after "
+                         "the kill")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+    if sys.argv[1:2] == ["--launch"]:
+        return launch_child(sys.argv[2], sys.argv[3:])
     if sys.argv[1:2] == ["--profile-chunked"]:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -1333,12 +1542,13 @@ def main():
     smi = phase_device()
     phase_build()
     main_checks = phase_checks()
-    train = {}
+    train, chunked = {}, {}
     for model in MODELS:
         train[model] = phase_train(model)
         phase_parity(model, train[model]["step1_loss"])
         phase_profile(model, main_checks)
-        ms = phase_chunked(model, train[model])
+        chunked[model] = phase_chunked(model, train[model])
+        ms = chunked[model]["ms_per_step_after_first_chunk"]
         if model == "transformer":
             phase_chunked(model, train[model], k=1)
         phase_profile_chunked(model, train[model]["per_eval"], ms)
@@ -1351,6 +1561,7 @@ def main():
     phase_micro_batches()
     phase_profile_dir()
     phase_eval_cnn()
+    phase_resume(phase_sched(train["transformer"], chunked["transformer"]))
     kernels = []
     for name, path, replaces in (
             ("fused_xent", "transformer",

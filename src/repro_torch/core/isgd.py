@@ -122,6 +122,14 @@ def isgd_init(rule: UpdateRule, cfg: ISGDConfig, params) -> ISGDState:
                      iter=0, accel_count=0, sub_iters=0)
 
 
+def _push(queue, loss, slot):
+    """FIFO push where ``slot`` is None, else the per-batch table write at
+    ``slot`` (a 0-d int tensor, never read back)."""
+    if slot is None:
+        return control.push(queue, loss)
+    return control.push_at(queue, slot, loss)
+
+
 def isgd_step(rule: UpdateRule, cfg: ISGDConfig, loss_and_grad: Callable,
               state: ISGDState, params, batch, lr, slot=None):
     """One inconsistent-training iteration (Alg.1 body).
@@ -137,8 +145,7 @@ def isgd_step(rule: UpdateRule, cfg: ISGDConfig, loss_and_grad: Callable,
 
     # lines 13-20: queue + control limit (after the push)
     with named_scope("obs/psi_push"):
-        queue = (control.push(state.queue, loss) if slot is None
-                 else control.push_at(state.queue, slot, loss))
+        queue = _push(state.queue, loss, slot)
         limit = control.control_limit(queue, cfg.k_sigma)
 
     # the branch: its predicate's host read (the step's one sync), then
@@ -168,8 +175,7 @@ def consistent_step(rule: UpdateRule, loss_and_grad: Callable, state, params,
     the same metrics surface (paper §5.2)."""
     (loss, aux), grads = loss_and_grad(params, batch)
     base_state = rule.apply(state.base, params, grads, lr)
-    queue = (control.push(state.queue, loss) if slot is None
-             else control.push_at(state.queue, slot, loss))
+    queue = _push(state.queue, loss, slot)
     metrics = {"loss": loss, "aux": aux,
                "psi_bar": control.mean(queue), "psi_std": control.std(queue),
                "limit": control.control_limit(queue),
@@ -202,11 +208,16 @@ def run_if(pred, body: Callable):
 
 
 def assign_(dst, src):
-    """Copy the tensors of ``src`` into those of ``dst`` (same structure),
-    skipping a tensor that already is its destination."""
+    """Copy the tensors of ``src`` into those of ``dst`` (same structure of
+    tuples, lists and dicts), skipping a tensor that already is its
+    destination."""
     if torch.is_tensor(dst):
         if dst is not src:
             dst.copy_(src)
+        return
+    if isinstance(dst, dict):
+        for k, d in dst.items():
+            assign_(d, src[k])
         return
     for d, s in zip(dst, src):
         assign_(d, s)
@@ -233,18 +244,20 @@ def isgd_device_init(rule: UpdateRule, cfg: ISGDConfig, params, *,
 
 def isgd_step_device(rule: UpdateRule, cfg: ISGDConfig,
                      loss_and_grad: Callable, state: DeviceISGDState, params,
-                     batch, lr):
+                     batch, lr, slot=None):
     """``isgd_step`` with the accelerate branch and Alg. 2 on the device:
     the same arithmetic in the same order, so its trajectory is the per-step
     engine's bit for bit. Updates ``state`` and ``params`` in place and
     returns them with the step's metrics (0-d tensors). The guarded parts
     read ``state.trips``, the params and ``batch`` only, so ``batch`` must
-    outlive the step where it is captured."""
+    outlive the step where it is captured. ``slot`` as in ``isgd_step``:
+    a 0-d int tensor on the device, which the push takes without a host
+    read, so a capture holds it."""
     (loss, aux), grads = loss_and_grad(params, batch)
     assign_(state.base, rule.apply(state.base, params, grads, lr))
     del grads
     with named_scope("obs/psi_push"):
-        assign_(state.queue, control.push(state.queue, loss))
+        assign_(state.queue, _push(state.queue, loss, slot))
         limit = control.control_limit(state.queue, cfg.k_sigma)
     accelerate = loss > limit
 
@@ -289,12 +302,13 @@ def isgd_step_device(rule: UpdateRule, cfg: ISGDConfig,
 
 
 def consistent_step_device(rule: UpdateRule, loss_and_grad: Callable,
-                           state: DeviceISGDState, params, batch, lr):
+                           state: DeviceISGDState, params, batch, lr,
+                           slot=None):
     """``consistent_step`` in the device form (in place, tensor metrics)."""
     (loss, aux), grads = loss_and_grad(params, batch)
     assign_(state.base, rule.apply(state.base, params, grads, lr))
     del grads
-    assign_(state.queue, control.push(state.queue, loss))
+    assign_(state.queue, _push(state.queue, loss, slot))
     state.iter.add_(1)
     metrics = {"loss": loss, "aux": aux,
                "psi_bar": control.mean(state.queue),

@@ -6,8 +6,10 @@ one of the ``paper_transformer`` zoo models (``--model transformer|moe|ssm
 ID``, with ``--reduced`` its CPU-size variant); exactly one of ``--model``
 and ``--arch`` is given. It builds the model, draws the synthetic LM token
 stream (``make_lm_tokens(0, n_seqs, seq, vocab)``) into an FCPR ring
-(``seed=1``), and trains through ``repro_torch.train.train``, printing the
-JAX launcher's ``step N loss= psi_bar= limit= accel=`` lines and its
+(``seed=1``), and trains through the per-step engine
+(``make_train_step``, its metrics deferred to the print boundaries as
+``repro_torch.train.train`` defers them), printing the JAX launcher's
+``step N loss= psi_bar= limit= accel=`` lines and its
 ``done: ... accelerated= sub_iters=`` line. A VLM or an enc-dec model gets
 constant zero frontend embeddings in bf16 (``frontend_embeds``), in every
 batch, as the JAX launcher feeds them.
@@ -21,6 +23,18 @@ each chunk is printed. The warm-up and capture happen before the clock
 (``capture:`` line). ``--device-ring`` feeds the per-step engine from the
 device-resident ring (``ring_or_prefetch``: the ring if the epoch fits
 256 MiB, else a double-buffered prefetcher).
+
+``--schedule SPEC`` (``fcpr | loss-prop | rank``, options as
+``family:k=v,...``; ``repro_torch.sched``) selects each step's batch on the
+device from the ring instead of the FCPR walk: per-step
+(``make_scheduled_train_step``, ``batch=`` in the step lines) or fused
+(``--chunk-steps K``: the draw, the table update and the gather inside the
+graph; ``visits=`` a chunk). ``--checkpoint-dir D --checkpoint-every N``
+writes crash-consistent engine checkpoints (``train.checkpoints``: params,
+ISGD state, policy table, step; the JAX package's format) at the first
+step or chunk boundary past each multiple of N; ``--resume`` restores the
+newest one in place and continues from its step, on the uninterrupted
+run's trajectory bit for bit (a resumed fused run may start mid-chunk).
 
 ``--obs-dir D`` writes the run's telemetry (``repro_torch.obs``) to
 ``D/metrics.p0.jsonl`` and ``D/summary.json``: the SPC control chart, step
@@ -47,7 +61,9 @@ the card the kernels are built before the clock starts.
       --reduced --batch 2 --seq 64 --n-seqs 8 --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --model transformer --tier tiny --steps 6 --seq 64 --n-seqs 32 \\
-      [--chunk-steps 4] [--obs-dir /tmp/obs] [--profile-dir /tmp/prof]
+      [--chunk-steps 4] [--obs-dir /tmp/obs] [--profile-dir /tmp/prof] \\
+      [--schedule loss-prop] [--checkpoint-dir /tmp/ck --checkpoint-every 4 \\
+      [--resume]]
 """
 from __future__ import annotations
 
@@ -70,8 +86,13 @@ from repro_torch.obs import (ConsoleSink, JsonlSink, MetricsRecorder,
                              write_merged_summary)
 from repro_torch.obs.console import is_coordinator, process_index
 from repro_torch.optim import RULES
+from repro_torch.sched.policies import schedule_from_spec
 from repro_torch.train import (TrainLog, host_metrics,
-                               make_chunked_train_step, train)
+                               make_chunked_train_step,
+                               make_scheduled_train_step, make_train_step)
+from repro_torch.train.checkpoints import (Checkpointer, layout_for,
+                                           restore_engine)
+from repro_torch.train.trainer import Deferred
 
 
 def parse_args(argv=None):
@@ -112,6 +133,25 @@ def parse_args(argv=None):
                     help="per-step engine fed from the device-resident FCPR "
                          "ring instead of host batches (implied by "
                          "--chunk-steps > 1)")
+    ap.add_argument("--schedule", default=None,
+                    help="batch-selection policy (repro_torch.sched): "
+                         "fcpr | loss-prop | rank, with options as "
+                         "family:k=v,... (e.g. loss-prop:eps=0.2).  "
+                         "Selection runs on device over the ring; fcpr is "
+                         "bit-exact with the default engines; omit for the "
+                         "hard-wired FCPR paths")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="directory for crash-consistent full-engine "
+                         "checkpoints (atomic .npz, checksummed; "
+                         "repro_torch.train.checkpoints)")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="checkpoint cadence in steps (saved at the first "
+                         "step/chunk boundary past each mark).  0 = never")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the newest complete checkpoint in "
+                         "--checkpoint-dir (a resumed run continues the "
+                         "uninterrupted trajectory bit-exactly — "
+                         "repro_torch.train.resume_parity)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; the CPU only when named")
     ap.add_argument("--obs-dir", default=None,
@@ -179,9 +219,41 @@ class WithExtras:
         return dict(self.sampler(j), **self.extra)
 
 
-def _make_observer(args, cfg, icfg, engine: str):
+def _make_checkpointer(args, layout, recorder=None):
+    """``--checkpoint-dir``/``--checkpoint-every`` -> a ``Checkpointer``
+    naming the params by ``layout``, or None when checkpoints are off."""
+    if not args.checkpoint_dir:
+        return None
+    return Checkpointer(args.checkpoint_dir, every=args.checkpoint_every,
+                        layout=layout, recorder=recorder)
+
+
+def _maybe_resume(args, ckpt, *, params_like, state_like, sched_like=None):
+    """``--resume``: restore the newest complete checkpoint in the directory
+    (atomic saves guarantee completeness) into the run's freshly built
+    params, state and policy state, in place. Returns the
+    ``EngineCheckpoint`` (its ``state`` carries a per-step state's
+    counters) or None."""
+    if not (args.resume and ckpt is not None):
+        return None
+    latest = ckpt.latest()
+    if latest is None:
+        print(f"resume: no checkpoint under {ckpt.directory!r}; "
+              f"starting fresh")
+        return None
+    ck = restore_engine(latest, params_like=params_like,
+                        state_like=state_like, sched_like=sched_like,
+                        layout=ckpt.layout, recorder=ckpt.recorder)
+    ckpt.mark(ck.step)
+    print(f"resume: restored {latest!r} at step {ck.step}")
+    return ck
+
+
+def _make_observer(args, cfg, icfg, engine: str, table: bool = False):
     """``--obs-dir`` -> a ``TrainObserver`` writing this process's JSONL
-    (tagged process_id/engine/model), or None when obs is off."""
+    (tagged process_id/engine/model), or None when obs is off. The SPC
+    exporter replays the engine's queue discipline: per-batch table writes
+    (``table``) for ``uses_table`` schedules, FIFO otherwise."""
     if not args.obs_dir:
         return None
     os.makedirs(args.obs_dir, exist_ok=True)
@@ -192,7 +264,7 @@ def _make_observer(args, cfg, icfg, engine: str):
     rec = MetricsRecorder(sinks, tags={"process_id": pid, "engine": engine,
                                        "model": cfg.name})
     return TrainObserver(rec, n_batches=icfg.n_batches, k_sigma=icfg.k_sigma,
-                         examples_per_step=args.batch)
+                         table=table, examples_per_step=args.batch)
 
 
 def run(args, *, fused=None, profiler=None) -> dict:
@@ -201,9 +273,15 @@ def run(args, *, fused=None, profiler=None) -> dict:
     ``profiler`` (a ``torch.profiler.profile``; ``--profile-dir`` makes
     one with ``obs.maybe_profile``) is entered around the timed steps only,
     and stepped after each chunk of the chunked engine.
-    -> {"log", "state", "seconds", "steps", "peak_bytes",
-    "peak_reserved", "params", "capture_seconds", "chunk_steps", "obs"}
-    (``obs``: the ``spc.final`` payload with ``--obs-dir``, else None)."""
+    -> {"log", "batch_idx", "state", "sched_state", "model", "seconds",
+    "steps",
+    "start", "peak_bytes", "peak_reserved", "params", "capture_seconds",
+    "chunk_steps", "obs"} (``model``: the trained ``Model``; ``params``:
+    its parameter count; ``steps``: the
+    last step run, ``start`` the first (the resumed step, else 0), and the
+    log holds the steps between; ``obs``: the ``spc.final`` payload with
+    ``--obs-dir``, else None; ``batch_idx``: a scheduled run's batch
+    picks, one a step of the log)."""
     dev = resolve_device(args.device)
     k = args.chunk_steps
     if fused is None:
@@ -232,22 +310,55 @@ def run(args, *, fused=None, profiler=None) -> dict:
     icfg = ISGDConfig(n_batches=sampler.n_batches, k_sigma=args.k_sigma,
                       stop=args.stop)
     rule, lr_fn = RULES[args.rule](), constant_lr(args.lr)
-    obs = _make_observer(args, cfg, icfg, "chunked" if fused else "per-step")
+    schedule = None
+    if args.schedule is not None:
+        schedule = schedule_from_spec(args.schedule)
+        print(f"schedule: {schedule} (device-resident selection; non-FCPR "
+              f"policies read SPC limits from the per-batch loss table)")
+    obs = _make_observer(args, cfg, icfg, "chunked" if fused else "per-step",
+                         table=schedule is not None and schedule.uses_table)
+    ckpt = _make_checkpointer(args, layout_for(model.module),
+                              recorder=obs.recorder if obs is not None
+                              else None)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
     capture = 0.0
-    if fused:
+    sched_state = None
+    common = dict(inconsistent=not args.consistent, lr_fn=lr_fn)
+    if fused or schedule is not None:
+        # the fused engine and every scheduled engine select on the device:
+        # the ring is mandatory
         ring = DeviceRing(ring_epoch(cfg, sampler, args.batch, dev),
                           args.batch, device=dev)
-        init_fn, chunk_fn = make_chunked_train_step(
-            model.loss_fn, rule, icfg, chunk_steps=k,
-            inconsistent=not args.consistent, lr_fn=lr_fn)
-        state = init_fn(params)
-        chunk_fn.prepare(state, params, ring.arrays)
-        capture = chunk_fn.capture_seconds
+    if fused:
+        init_fn, step_fn = make_chunked_train_step(
+            model.loss_fn, rule, icfg, chunk_steps=k, schedule=schedule,
+            **common)
+    elif schedule is not None:
+        init_fn, step_fn = make_scheduled_train_step(
+            model.loss_fn, rule, icfg, schedule, **common)
+    else:
+        init_fn, step_fn = make_train_step(model.loss_fn, rule, icfg,
+                                           **common)
+    state = init_fn(params)
+    if schedule is not None:
+        sched_state = schedule.init(icfg.n_batches, device=dev)
+    ck = _maybe_resume(args, ckpt, params_like=params, state_like=state,
+                       sched_like=sched_state)
+    start = 0
+    if ck is not None:
+        state, start = ck.state, ck.step
+    carry = (state, params) + (() if schedule is None else (sched_state,))
+    if fused:
+        step_fn.prepare(*carry, ring.arrays)
+        capture = step_fn.capture_seconds
         if dev.type == "cuda":
             print(f"capture: {capture:.1f}s (warm-up and graph capture)")
+    elif schedule is not None:
+        def one_step(carry, j):
+            *carry, m = step_fn(*carry, ring.arrays, j)
+            return tuple(carry), m
     else:
         feed = sampler
         if args.device_ring:
@@ -256,72 +367,137 @@ def run(args, *, fused=None, profiler=None) -> dict:
         extra = frontend_embeds(cfg, args.batch, dev)
         if extra:
             feed = WithExtras(feed, extra)
+
+        def one_step(carry, j):
+            batch = {n: torch.as_tensor(v).to(dev) for n, v in feed(j).items()}
+            *carry, m = step_fn(*carry, batch)
+            return tuple(carry), m
     with profiler if profiler is not None else contextlib.nullcontext():
         t0 = time.perf_counter()
         if fused:
-            state, steps, log = _drive_chunks(
-                chunk_fn, state, params, ring, args.steps, k, t0,
-                on_chunk=getattr(profiler, "step", None), obs=obs)
+            carry, steps, log, picks = _drive_chunks(
+                step_fn, carry, ring, args.steps, k, t0, start=start,
+                ckpt=ckpt, on_chunk=getattr(profiler, "step", None), obs=obs)
         else:
-            steps = args.steps
-            params, state, log, _ = train(params, model.loss_fn, rule, feed,
-                                          steps=steps,
-                                          inconsistent=not args.consistent,
-                                          isgd_cfg=icfg, lr_fn=lr_fn,
-                                          log_every=5, observer=obs)
+            carry, steps, log, picks = _drive_steps(
+                one_step, carry, args.steps, t0, start=start, ckpt=ckpt,
+                obs=obs)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         dt = time.perf_counter() - t0
+    state = carry[0]
+    ran = max(steps - start, 1)
     final = None
     if obs is not None:
-        final = obs.finalize(state, steps=steps, wall=dt)
+        # a resumed run missed the pushes before the restart: chart only,
+        # no reconcile claim
+        final = obs.finalize(None if ck is not None else state, steps=ran,
+                             wall=dt)
         if is_coordinator():
             write_merged_summary(args.obs_dir)
         print(f"obs: {args.obs_dir} "
               f"spc_reconciled={final.get('reconciled', 'n/a')} "
               f"accel_events={final['accel_events']}")
-    print(f"done: {steps} steps in {dt:.1f}s "
-          f"({dt/steps*1e3:.0f} ms/step) "
+    print(f"done: {ran} steps in {dt:.1f}s "
+          f"({dt/ran*1e3:.0f} ms/step) "
           f"accelerated={int(state.accel_count)} "
           f"sub_iters={int(state.sub_iters)}")
     cuda = dev.type == "cuda"
-    return {"log": log, "state": state, "seconds": dt, "steps": steps,
+    return {"log": log, "batch_idx": picks, "state": state,
+            "sched_state": sched_state, "model": model, "seconds": dt,
+            "steps": steps, "start": start,
             "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda else None,
             "peak_reserved": torch.cuda.max_memory_reserved(dev) if cuda else None,
             "params": n_params, "capture_seconds": capture,
             "chunk_steps": k if fused else 1, "obs": final}
 
 
-def _drive_chunks(chunk_fn, state, params, ring, steps: int, k: int, t0,
-                  on_chunk=None, obs=None):
-    """Run ``steps`` (rounded up to whole chunks) through the fused engine,
-    printing the last step of each chunk. ``host_metrics`` is the one host
-    read per chunk: it waits for the chunk, so the wall taken after it is
-    the chunk's end. The log and ``obs`` (a ``TrainObserver``) take its
-    host arrays; then ``on_chunk()`` if given. -> (state, steps run, log)."""
-    log = TrainLog()
-    j = 0
+def _print_step(j: int, log, **extra):
+    more = "".join(f" {k}={v}" for k, v in extra.items())
+    print(f"step {j:4d} loss={log.losses[-1]:.4f} "
+          f"psi_bar={log.psi_bar[-1]:.4f} limit={log.limits[-1]:.4f} "
+          f"accel={log.accelerated[-1]}{more}", flush=True)
+
+
+def _offer(ckpt, j: int, carry) -> None:
+    """Offer ``ckpt`` (if any) the boundary after step ``j``: ``carry``
+    is ``(state, params[, sched_state])``."""
+    if ckpt is not None:
+        ckpt.maybe_save(j, state=carry[0], params=carry[1],
+                        sched_state=carry[2] if len(carry) > 2 else None)
+
+
+def _drive_chunks(chunk_fn, carry, ring, steps: int, k: int, t0,
+                  start: int = 0, ckpt=None, on_chunk=None, obs=None):
+    """Run from global step ``start`` to ``steps`` (rounded up to whole
+    chunks) through the fused engine, ``carry`` being ``(state,
+    params[, sched_state])``, printing the last step of each chunk (and a
+    scheduled chunk's ``visits=``). ``start`` may sit mid-chunk relative to
+    the K grid: ``chunk_fn`` takes any ``j0`` (what makes resuming from a
+    checkpoint possible). ``host_metrics`` is the one host read per chunk:
+    it waits for the chunk, so the wall taken after it is the chunk's end.
+    The log and ``obs`` (a ``TrainObserver``) take its host arrays;
+    ``ckpt`` is offered the chunk boundary; then ``on_chunk()`` if given.
+    -> (carry, last step run, log, batch picks)."""
+    from repro_torch.sched.engine import selection_counts
+    log, picks = TrainLog(), []
+    j = start
     while j < steps:
-        state, params, ms = chunk_fn(state, params, ring.arrays, j)
+        *carry, ms = chunk_fn(*carry, ring.arrays, j)
         host = host_metrics(ms)
         log.extend(host, time.perf_counter() - t0)
         if obs is not None:
             obs.chunk(j, host)
         j += k
-        print(f"step {j:4d} loss={log.losses[-1]:.4f} "
-              f"psi_bar={log.psi_bar[-1]:.4f} limit={log.limits[-1]:.4f} "
-              f"accel={log.accelerated[-1]}", flush=True)
+        extra = {}
+        if "batch_idx" in host:
+            picks += host["batch_idx"].astype(int).tolist()
+            extra["visits"] = selection_counts(host["batch_idx"],
+                                               ring.n_batches).tolist()
+        _print_step(j, log, **extra)
+        _offer(ckpt, j, carry)
         if on_chunk is not None:
             on_chunk()
-    return state, j, log
+    return tuple(carry), j, log, picks
+
+
+def _drive_steps(one_step, carry, steps: int, t0, *, start: int = 0,
+                 ckpt=None, obs=None):
+    """The per-step engines from ``start`` to ``steps``: ``one_step(carry,
+    j) -> (carry, metrics)``. Metrics stay on the device until the print
+    boundaries (step 1 and every 5th) and the end, as ``train`` defers them
+    (``trainer.Deferred``), and the log marks the walls estimated; a
+    scheduled step's pick is printed (``batch=``). ``ckpt`` is offered
+    every step boundary. -> (carry, last step run, log, batch picks)."""
+    log, picks = TrainLog(), []
+    deferred = Deferred(log, obs)
+
+    def flush():
+        picks.extend(int(r["batch_idx"]) for r in deferred.flush()
+                     if "batch_idx" in r)
+
+    for j in range(start, steps):
+        carry, m = one_step(carry, j)
+        deferred.add(j, m, time.perf_counter() - t0)
+        if j == start or (j + 1) % 5 == 0:
+            flush()
+            _print_step(j + 1, log,
+                        **({"batch": picks[-1]} if picks else {}))
+        _offer(ckpt, j + 1, carry)
+    flush()
+    return carry, steps, log, picks
 
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
+    if args.resume and not args.checkpoint_dir:
+        raise SystemExit("--resume needs --checkpoint-dir")
     try:
         resolve_device(args.device)
         resolve_config(args)
-    except (RuntimeError, ValueError) as e:   # the CLI boundary
+        if args.schedule is not None:
+            schedule_from_spec(args.schedule)
+    except (RuntimeError, ValueError, TypeError) as e:   # the CLI boundary
         raise SystemExit(f"error: {e}") from None
     return run(args)
 

@@ -25,6 +25,11 @@ tensors updated in place; intermediates live in the graph's private pool.
 Without CUDA-graph conditional nodes the engine raises: it never falls
 back to host reads. On a CPU device the same body runs in a plain loop.
 
+A ``repro_torch.sched`` policy may pick the batch instead of the ring
+walk (``make_chunked_train_step(..., schedule=)``): its draw, table update
+and the gather at the drawn index are tensor operations inside the same
+captured step, so selection adds no host read either.
+
 Semantics are bit-exact with the per-step engine: the body does the
 per-step arithmetic in the same order, and ``lr_fn`` reads ψ̄ from the
 queue BEFORE the step pushes its own loss, as ``make_step_core`` does.
@@ -66,9 +71,10 @@ def make_device_step(loss_fn: Callable, rule: UpdateRule, isgd_cfg: ISGDConfig,
                      *, inconsistent: bool = True, lr_fn: Callable,
                      micro_batches: int = 1):
     """``(init_fn, step_fn)`` of the device form. ``init_fn(params)`` ->
-    ``DeviceISGDState``; ``step_fn(state, params, batch)`` -> ``(state,
-    params, metrics)``, updating in place, with the LR read from ψ̄ before
-    the push. ``micro_batches`` as in ``make_loss_and_grad``: the loop over
+    ``DeviceISGDState``; ``step_fn(state, params, batch, slot=None)`` ->
+    ``(state, params, metrics)``, updating in place, with the LR read from
+    ψ̄ before the push; ``slot`` as in ``core.isgd.isgd_step_device``.
+    ``micro_batches`` as in ``make_loss_and_grad``: the loop over
     micro-batches is static, so a capture records it like the rest of the
     step (its f32 gradient sums live in the graph's pool)."""
     lg = make_loss_and_grad(loss_fn, micro_batches)
@@ -77,30 +83,55 @@ def make_device_step(loss_fn: Callable, rule: UpdateRule, isgd_cfg: ISGDConfig,
         return isgd_device_init(rule, isgd_cfg, params,
                                 inconsistent=inconsistent)
 
-    def step_fn(state, params, batch):
+    def step_fn(state, params, batch, slot=None):
         lr = lr_fn(control.mean(state.queue))
         if inconsistent:
             return isgd_step_device(rule, isgd_cfg, lg, state, params, batch,
-                                    lr)
-        return consistent_step_device(rule, lg, state, params, batch, lr)
+                                    lr, slot=slot)
+        return consistent_step_device(rule, lg, state, params, batch, lr,
+                                      slot=slot)
 
     return init_fn, step_fn
 
 
-class ChunkFn:
-    """``chunk_fn(state, params, ring_arrays, j0) -> (state, params,
-    stacked)``: ``chunk_steps`` steps from global step ``j0``, batch t =
-    rows ``[t*bs, (t+1)*bs)`` of ``ring_arrays``; ``stacked`` holds (K,)
-    tensors on the device. ``prepare`` does the warm-up and the capture
-    (on CUDA) ahead of the first chunk; it is redone only for other
-    tensors. ``capture_seconds`` is the time it took."""
+def gather_batch(ring_arrays, t, n_batches: int, out=None):
+    """Batch ``t`` (a 0-d int tensor on the device) of the ring: rows
+    ``[t*bs, (t+1)*bs)`` of each array, gathered at a device index, into
+    ``out`` where given (the fused engine's static batch)."""
+    rows = next(iter(ring_arrays.values()))
+    bs = rows.shape[0] // n_batches
+    idx = t * bs + torch.arange(bs, device=rows.device)
+    if out is None:
+        return {k: v.index_select(0, idx) for k, v in ring_arrays.items()}
+    for k, v in ring_arrays.items():
+        torch.index_select(v, 0, idx, out=out[k])
+    return out
 
-    def __init__(self, step_fn: Callable, n_batches: int, chunk_steps: int):
+
+class ChunkFn:
+    """``chunk_fn(*carry, ring_arrays, j0) -> (*carry, stacked)``:
+    ``chunk_steps`` steps from global step ``j0``; ``carry`` is ``(state,
+    params)``, or ``(state, params, sched_state)`` for a scheduled body;
+    ``stacked`` holds (K,) tensors on the device, one per key of
+    ``metrics``. ``body(carry, ring_arrays, j, batch) -> metrics`` is one
+    step at the device step counter ``j``: it picks its batch (the FCPR
+    ring walk of ``chunk_over_ring``, or a policy's draw,
+    ``sched.engine.chunk_over_schedule``), gathers it into the static
+    ``batch`` and updates ``carry`` in place. ``prepare`` does the warm-up
+    and the capture (on CUDA) ahead of the first chunk; it is redone only
+    for other tensors. ``capture_seconds`` is the time it took.
+
+    ``j0`` is a free cursor: any step, on or off the K grid, so a run
+    resumed from a checkpoint at step 6 runs its chunks of 4 from step 6."""
+
+    def __init__(self, body: Callable, n_batches: int, chunk_steps: int,
+                 metrics: dict = METRICS):
         if chunk_steps < 1:
             raise ValueError("chunk_steps must be >= 1")
-        self.step_fn = step_fn
+        self.body = body
         self.n_batches = n_batches
         self.chunk_steps = chunk_steps
+        self.metrics = metrics
         self.graph = None
         self.capture_seconds = 0.0
         self._key = None
@@ -112,34 +143,31 @@ class ChunkFn:
         self.batch = {k: torch.empty((bs, *v.shape[1:]), dtype=v.dtype,
                                      device=device)
                       for k, v in ring_arrays.items()}
-        self.offsets = torch.arange(bs, device=device)
         self.j = torch.zeros((), dtype=torch.int64, device=device)
         self.row = torch.zeros((), dtype=torch.int64, device=device)
         self.out = {k: torch.zeros((self.chunk_steps,), dtype=dt,
                                    device=device)
-                    for k, dt in METRICS.items()}
+                    for k, dt in self.metrics.items()}
 
-    def _body(self, state, params, ring_arrays):
-        """One step: gather batch ``j mod n_b``, step, write the metrics at
-        row ``row``, advance both counters. Nothing is read back."""
-        bs = self.offsets.shape[0]
-        idx = torch.remainder(self.j, self.n_batches) * bs + self.offsets
-        for k, v in ring_arrays.items():
-            torch.index_select(v, 0, idx, out=self.batch[k])
-        _, _, metrics = self.step_fn(state, params, self.batch)
+    def _step(self, carry, ring_arrays):
+        """One step: the body at step ``j``, its metrics written at row
+        ``row``, both counters advanced. Nothing is read back."""
+        metrics = self.body(carry, ring_arrays, self.j, self.batch)
         r = self.row.reshape(1)
         for k, buf in self.out.items():
             buf.index_put_((r,), metrics[k].reshape(1).to(buf.dtype))
         self.j.add_(1)
         self.row.add_(1)
 
-    def prepare(self, state, params, ring_arrays):
-        live = list(_tensors((state, params)))
+    def prepare(self, *args):
+        """``prepare(*carry, ring_arrays)``."""
+        carry, ring_arrays = args[:-1], args[-1]
+        live = list(_tensors(carry))
         static = live + list(_tensors(ring_arrays))
         key = tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in static)
         if key == self._key:
             return
-        device = params[0].device
+        device = carry[1][0].device
         self._allocate(ring_arrays, device)
         self.graph = None
         if device.type == "cuda":
@@ -152,7 +180,7 @@ class ChunkFn:
             side = torch.cuda.Stream(device)
             side.wait_stream(torch.cuda.current_stream(device))
             with bodies.recording(), torch.cuda.stream(side):
-                self._body(state, params, ring_arrays)
+                self._step(carry, ring_arrays)
             torch.cuda.current_stream(device).wait_stream(side)
             with torch.no_grad():
                 for t, s in zip(live, saved):
@@ -160,23 +188,29 @@ class ChunkFn:
             del saved
             graph = torch.cuda.CUDAGraph()
             with bodies.splicing(), torch.cuda.graph(graph):
-                self._body(state, params, ring_arrays)
+                self._step(carry, ring_arrays)
             torch.cuda.synchronize(device)
             self.graph = graph
             self.capture_seconds = time.perf_counter() - t0
         self._key, self._refs = key, static
 
-    def __call__(self, state, params, ring_arrays, j0: int):
-        self.prepare(state, params, ring_arrays)
-        self.j.fill_(int(j0))
+    def __call__(self, *args):
+        """``chunk_fn(*carry, ring_arrays, j0)``."""
+        carry, (ring_arrays, j0) = args[:-2], args[-2:]
+        j0 = int(j0)
+        # the ring index t·bs + row is int64 on the device
+        if not 0 <= j0 <= torch.iinfo(torch.int64).max - self.chunk_steps:
+            raise ValueError(f"j0={j0} is outside the int64 step range")
+        self.prepare(*carry, ring_arrays)
+        self.j.fill_(j0)
         self.row.zero_()
         with named_scope("obs/chunk_scan"):
             for _ in range(self.chunk_steps):
                 if self.graph is not None:
                     self.graph.replay()
                 else:
-                    self._body(state, params, ring_arrays)
-        return state, params, {k: v.clone() for k, v in self.out.items()}
+                    self._step(carry, ring_arrays)
+        return (*carry, {k: v.clone() for k, v in self.out.items()})
 
 
 def chunk_over_ring(step_fn: Callable, n_batches: int,
@@ -184,19 +218,33 @@ def chunk_over_ring(step_fn: Callable, n_batches: int,
     """Wrap a device-form ``step_fn(state, params, batch) -> (state,
     params, metrics)`` into ``chunk_fn(state, params,
     ring_arrays, j0) -> (state, params, stacked)`` over the FCPR ring
-    (``ring_arrays``: a ``DeviceRing``'s ``.arrays``)."""
-    return ChunkFn(step_fn, n_batches, chunk_steps)
+    (``ring_arrays``: a ``DeviceRing``'s ``.arrays``): batch ``j mod
+    n_b`` at step j."""
+    def body(carry, ring_arrays, j, batch):
+        t = torch.remainder(j, n_batches)
+        gather_batch(ring_arrays, t, n_batches, out=batch)
+        return step_fn(*carry, batch)[2]
+
+    return ChunkFn(body, n_batches, chunk_steps)
 
 
 def make_chunked_train_step(loss_fn: Callable, rule: UpdateRule,
                             isgd_cfg: ISGDConfig, *, chunk_steps: int,
                             inconsistent: bool = True,
-                            lr_fn: Callable = None, micro_batches: int = 1):
+                            lr_fn: Callable = None, micro_batches: int = 1,
+                            schedule=None, sched_seed: int = 0):
     """``(init_fn, chunk_fn)`` of the single-device fused engine.
     ``lr_fn`` is required: inside a chunk the LR is derived on the device
     from the previous step's queue; there is no host between steps to pass
     one. ``micro_batches`` as in ``make_loss_and_grad``. ``init_fn`` raises
-    on CUDA params where conditional nodes are missing."""
+    on CUDA params where conditional nodes are missing.
+
+    ``schedule`` (a ``repro_torch.sched`` policy) swaps the FCPR ring walk
+    for on-device policy selection: ``chunk_fn(state, params, sched_state,
+    ring_arrays, j0) -> (state, params, sched_state, stacked)``, with
+    ``sched_state = schedule.init(isgd_cfg.n_batches, device)`` updated in
+    place and a ``batch_idx`` row in ``stacked``; ``FCPRSchedule`` is
+    bit-exact with ``schedule=None``."""
     if lr_fn is None:
         raise ValueError("the chunked engine needs lr_fn (no per-step host)")
     init_dev, step_fn = make_device_step(loss_fn, rule, isgd_cfg,
@@ -209,4 +257,9 @@ def make_chunked_train_step(loss_fn: Callable, rule: UpdateRule,
             graph_if.require()
         return init_dev(params)
 
+    if schedule is not None:
+        from repro_torch.sched.engine import chunk_over_schedule
+        return init_fn, chunk_over_schedule(step_fn, schedule,
+                                            isgd_cfg.n_batches, chunk_steps,
+                                            sched_seed)
     return init_fn, chunk_over_ring(step_fn, isgd_cfg.n_batches, chunk_steps)

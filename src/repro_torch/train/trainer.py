@@ -112,6 +112,33 @@ def make_train_step(loss_fn: Callable, rule: UpdateRule, isgd_cfg: ISGDConfig,
                           lr_fn=lr_fn)
 
 
+def make_scheduled_train_step(loss_fn: Callable, rule: UpdateRule,
+                              isgd_cfg: ISGDConfig, schedule, *,
+                              inconsistent: bool = True,
+                              lr_fn: Callable = None, micro_batches: int = 1,
+                              sched_seed: int = 0):
+    """Per-step engine with on-device batch *selection*
+    (``repro_torch.sched``). Returns ``(init_fn, step_fn)`` with
+    ``step_fn(state, params, sched_state, ring_arrays, j) -> (state,
+    params, sched_state, metrics)``: the batch of step ``j`` is drawn by
+    ``schedule`` with tensor operations on the device and gathered from
+    the ring arrays (a ``DeviceRing``'s ``.arrays``) at that index, so the
+    loss table never travels to the host. ``sched_state`` starts as
+    ``schedule.init(isgd_cfg.n_batches, device)`` and is updated in place.
+    ``lr_fn`` is required: the LR is derived on the device, as selection
+    is. With ``FCPRSchedule`` it is bit-exact with ``make_train_step`` fed
+    by the host sampler, and with any policy bit-exact with the fused
+    engine's ``make_chunked_train_step(..., schedule=)``."""
+    if lr_fn is None:
+        raise ValueError("the scheduled engine needs lr_fn (device-side LR)")
+    from repro_torch.sched.engine import make_scheduled_body
+    init_fn, step_fn = make_step_core(
+        loss_fn, rule, isgd_cfg, inconsistent=inconsistent, lr_fn=lr_fn,
+        micro_batches=micro_batches)
+    return init_fn, make_scheduled_body(step_fn, schedule,
+                                        isgd_cfg.n_batches, sched_seed)
+
+
 def host_metrics(stacked: Dict[str, Any]) -> Dict[str, np.ndarray]:
     """``{key: numpy array}`` of one boundary's metrics, ``aux`` left out.
     The tensors of ``stacked`` (all of one shape) come to the host in ONE
@@ -171,6 +198,42 @@ class TrainLog:
         return host
 
 
+class Deferred:
+    """A per-step loop's metrics, kept on the device until a boundary:
+    ``flush`` brings every deferred step to the host in ONE transfer
+    (``host_metrics``), appends each to ``log`` (its ``wall`` marked
+    estimated where ``wall_estimated``) and hands it to ``observer``
+    (``defer``, then ``flush``) if given. Returns the flushed host rows."""
+
+    def __init__(self, log: TrainLog, observer=None,
+                 wall_estimated: bool = True):
+        self.log, self.observer = log, observer
+        self.wall_estimated = wall_estimated
+        self.pending = []                    # (step, device metrics, wall)
+
+    def add(self, step: int, metrics: Dict[str, Any], wall: float) -> None:
+        self.pending.append((step, metrics, wall))
+
+    def flush(self) -> list:
+        rows = []
+        if self.pending:
+            ms = [m for _, m, _ in self.pending]
+            host = host_metrics({k: (torch.stack([m[k] for m in ms])
+                                     if torch.is_tensor(ms[0][k])
+                                     else [m[k] for m in ms])
+                                 for k in ms[0] if k != "aux"})
+            for i, (j, _, w) in enumerate(self.pending):
+                row = {k: v[i] for k, v in host.items()}
+                self.log.append(row, w, wall_estimated=self.wall_estimated)
+                if self.observer is not None:
+                    self.observer.defer(j, row)
+                rows.append(row)
+            self.pending.clear()
+        if self.observer is not None:
+            self.observer.flush()
+        return rows
+
+
 def train(params, loss_fn, rule, sampler, *, steps: int, lr=0.01,
           inconsistent: bool = True, isgd_cfg: Optional[ISGDConfig] = None,
           lr_fn: Callable = None, log_every: int = 0,
@@ -203,31 +266,16 @@ def train(params, loss_fn, rule, sampler, *, steps: int, lr=0.01,
     state = init_fn(params)
     log = TrainLog()
     evals = []
-    pending = []                              # (step, device metrics, wall)
+    deferred = Deferred(log, observer, wall_estimated=not step_sync)
+    flush = deferred.flush
     t0 = time.perf_counter()
-
-    def flush():
-        if pending:
-            rows = [m for _, m, _ in pending]
-            host = host_metrics({k: (torch.stack([r[k] for r in rows])
-                                     if torch.is_tensor(rows[0][k])
-                                     else [r[k] for r in rows])
-                                 for k in rows[0] if k != "aux"})
-            for i, (j, _, w) in enumerate(pending):
-                row = {k: v[i] for k, v in host.items()}
-                log.append(row, w, wall_estimated=not step_sync)
-                if observer is not None:
-                    observer.defer(j, row)
-            pending.clear()
-        if observer is not None:
-            observer.flush()
 
     for j in range(steps):
         batch = {k: torch.as_tensor(v).to(dev) for k, v in sampler(j).items()}
         state, params, metrics = step_fn(state, params, batch)
         if step_sync and dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        pending.append((j, metrics, time.perf_counter() - t0))
+        deferred.add(j, metrics, time.perf_counter() - t0)
         if log_every and (j == 0 or (j + 1) % log_every == 0):
             flush()
             print(f"step {j+1:4d} loss={log.losses[-1]:.4f} "

@@ -710,3 +710,23 @@ def test_reduced_jamba_runs_ssd_kernel(cuda):
                        _tol("ssd_scan", torch.bfloat16))
     rtol = _tol("fused_xent", torch.bfloat16)[0]
     assert abs(loss["cuda"] - loss["reference"]) <= rtol * abs(loss["reference"])
+
+
+@pytest.mark.cuda
+def test_sched_parity_on_card(cuda):
+    """The scheduled engines on the card: fcpr bit-exact with the
+    unscheduled ones, loss-prop per-step equal to fused (its draw, table
+    update and gather inside the CUDA graph), one chunk call per K steps."""
+    from repro_torch.sched import run_sched_parity
+    r = run_sched_parity(device="cuda")
+    assert r["ok"] and r["accelerations"] > 0, r
+
+
+@pytest.mark.cuda
+def test_resume_parity_on_card(cuda):
+    """Kill and resume on the card, bit for bit: the restore copies into
+    the tensors a captured graph holds, so the graph trains them."""
+    from repro_torch.train.resume_parity import run_resume_parity
+    for r in run_resume_parity(device="cuda"):
+        assert r["ok"] and r["max_dev"] == 0.0, r
+        assert r["accelerations"] > 0, r

@@ -3,11 +3,13 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 ENV = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+torch.set_num_threads(2)
 
 
 def _run(code_or_args, timeout=120):
@@ -24,8 +26,10 @@ def test_port_imports_no_jax_and_no_repro():
         "       or n == 'repro' or n.startswith('repro.')]\n"
         "n = len([n for n in sys.modules if n.startswith('repro_torch')])\n"
         "from repro_torch.configs import ARCH_IDS\n"
-        "need = ['repro_torch.models.moe'] + ['repro_torch.configs.' + a\n"
-        "                                     for a in ARCH_IDS]\n"
+        "need = ['repro_torch.models.moe', 'repro_torch.sched.parity',\n"
+        "        'repro_torch.train.checkpoints',\n"
+        "        'repro_torch.train.resume_parity'] + [\n"
+        "    'repro_torch.configs.' + a for a in ARCH_IDS]\n"
         "print('MISSING', [m for m in need if m not in sys.modules])\n"
         "print('BAD', bad, 'N', n)\n")
     r = _run(["-c", code])
@@ -65,4 +69,67 @@ def test_launcher_refuses_without_cuda():
               "--steps", "1"])
     assert r.returncode != 0
     assert "CUDA is not available" in r.stderr and "--device cpu" in r.stderr
+    assert "done:" not in r.stdout
+
+
+# four batches of 4 × 32 tokens: the branch fires from step 5 on
+TINY = ["--device", "cpu", "--model", "transformer", "--tier", "tiny",
+        "--batch", "4", "--seq", "32", "--n-seqs", "16", "--precision",
+        "f32", "--k-sigma", "-3"]
+
+
+def _engine_args(schedule, k):
+    return ((["--schedule", schedule] if schedule else [])
+            + ["--chunk-steps", str(k)])
+
+
+@pytest.mark.parametrize("schedule,k", [("loss-prop", 2), ("loss-prop", 1),
+                                        (None, 2), (None, 1)],
+                         ids=["loss-prop-fused", "loss-prop-per-step",
+                              "fcpr-fused", "fcpr-per-step"])
+def test_launcher_checkpoint_resume_equals_uninterrupted(tmp_path, schedule,
+                                                         k, capsys):
+    """Kill after step 4 (``--steps 4`` with ``--checkpoint-every 4``), then
+    ``--resume`` to step 8: the resumed steps' log (losses, decisions,
+    batch picks) and the final params, ISGD state and policy table equal
+    the uninterrupted run's, exactly."""
+    from repro_torch.launch import train as launcher
+    from repro_torch.train import checkpoints
+    base = TINY + _engine_args(schedule, k)
+    ck = ["--checkpoint-dir", str(tmp_path), "--checkpoint-every", "4"]
+    ref = launcher.main(base + ["--steps", "8"])
+    launcher.main(base + ["--steps", "4"] + ck)
+    got = launcher.main(base + ["--steps", "8", "--resume"] + ck)
+    assert "resume: restored" in capsys.readouterr().out
+    assert (got["start"], got["steps"]) == (4, 8)
+    for key in ("losses", "accelerated", "sub_iters"):
+        assert getattr(got["log"], key) == getattr(ref["log"], key)[4:], key
+    assert got["batch_idx"] == ref["batch_idx"][4:]
+    assert len(got["batch_idx"]) == (4 if schedule else 0)
+    assert any(got["log"].accelerated), "the branch never fired after the kill"
+    trees = [checkpoints.tree_arrays(checkpoints.pack_engine_state(
+        params=r["model"].params(), state=r["state"], step=8,
+        sched_state=r["sched_state"],
+        layout=checkpoints.layout_for(r["model"].module))[0])
+        for r in (ref, got)]
+    assert trees[0].keys() == trees[1].keys()
+    for key in trees[0]:
+        assert np.array_equal(trees[0][key], trees[1][key]), key
+
+
+def test_launcher_schedule_obs_reconciles_table(tmp_path):
+    """A table policy's SPC chart replays the per-batch queue writes
+    (``--obs-dir`` with ``table=True``) and reconciles with the engine."""
+    from repro_torch.launch import train as launcher
+    res = launcher.main(TINY + ["--steps", "6", "--schedule", "loss-prop",
+                                "--obs-dir", str(tmp_path)])
+    assert res["obs"]["reconciled"] is True, res["obs"]
+    assert sorted(set(res["batch_idx"])) == [0, 1, 2, 3]
+
+
+def test_launcher_resume_needs_checkpoint_dir():
+    r = _run(["-m", "repro_torch.launch.train", "--device", "cpu",
+              "--model", "transformer", "--tier", "tiny", "--resume"])
+    assert r.returncode != 0
+    assert "--resume needs --checkpoint-dir" in r.stderr
     assert "done:" not in r.stdout
