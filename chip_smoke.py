@@ -52,9 +52,24 @@ included; the selection inside the graph, the launches counted on the
 device), and ``resume`` kills a ``loss-prop`` run at a checkpoint (step 6,
 K = 3) and resumes it in a fresh process with K = 4, on the uninterrupted
 run's trajectory and final state bit for bit (each run a child process of
-this script, ``--launch OUT ARGS``). Each phase prints one JSON line; the
-last two lines are the kernels summary and ``{"ok": true, "device":
-{...}}``.
+this script, ``--launch OUT ARGS``). Then serving (``repro_torch.serve``,
+which runs the plain paths, as the reference serves without its kernels):
+``serve`` drives ``paper-transformer`` base through the serve launcher's
+continuous engine (48 mixed-length requests on 16 slots of 1024
+positions) and holds the decode step's CUDA graph, captured once, bit for
+bit against eager decode of the same slot state, the run's tokens against
+the one-shot path (a divergence is excused only where the one-shot
+top-2 logit margin is below the bf16 tolerance), and three requests'
+prefill and first decode steps against the full forward;
+``serve_oneshot`` times the one-shot engine at batch 16; ``serve_ssm``
+and ``serve_moe`` serve ``paper-ssm`` and ``paper-moe`` base (graph
+against eager; the SSM against one-shot; the MoE's capacity drops);
+``serve_arch`` holds each reduced architecture's cached decode against
+its full forward; ``train_and_serve`` serves while a trainer child
+publishes snapshots, hot-swapping them between decode steps.
+``--serve-only`` runs the device line and the serving phases alone. Each
+phase prints one JSON line; the last two lines are the kernels summary
+and ``{"ok": true, "device": {...}}``.
 
 Nothing is caught: any failure exits nonzero before the last line. Without
 a CUDA device, or outside a checkout of the repository, it exits nonzero
@@ -1529,6 +1544,601 @@ def phase_resume(ref: dict):
                          "the kill")
 
 
+# ---------------------------------------------------------------------------
+# serving (repro_torch.serve): no TPU kernel in the reference, none here
+# ---------------------------------------------------------------------------
+SERVE_RUN = ["--requests", "48", "--mixed-lengths", "--prompt-len", "128",
+             "--decode-steps", "64", "--max-seq", "1024", "--max-batch", "16"]
+SERVE_ZOO_RUN = ["--requests", "16", "--mixed-lengths", "--prompt-len", "128",
+                 "--decode-steps", "64", "--max-seq", "1024", "--max-batch",
+                 "16"]
+ONESHOT_RUN = ["--engine", "oneshot", "--batch", "16", "--prompt-len", "512",
+               "--decode-steps", "64", "--max-seq", "1024"]
+# relative in norm, the reference's serving tolerances (tests/test_serve.py)
+SERVE_TOL = {"prefill": 3e-2, "decode": 5e-2}
+FULL_FORWARD_STEPS = 8
+DEV = "cuda"                               # the serving phases' device
+PUBLISH_STEPS, PUBLISH_EVERY = 8, 4
+
+
+def margin_tol() -> tuple:
+    """(rtol, atol): the bf16 tolerance of ``repro_torch.kernels.numerics``
+    (its loosest bf16 row). Two computations of a logit x may differ by
+    atol + rtol·|x| (the logits are the bf16 head product, so a margin is
+    a whole number of bf16 steps: 0.03125 at |x| in [4, 8)), so a greedy
+    token whose top-2 margin is below that may flip between two batchings
+    of the same request."""
+    from repro_torch.kernels.numerics import TOLERANCES
+    return tuple(max(t["bfloat16"][i] for t in TOLERANCES.values())
+                 for i in (0, 1))
+
+
+def serve_args(model: str, run: list) -> list:
+    return ["--model", model, "--tier", "base", "--precision", "bf16",
+            "--kernels", "cuda", "--device", DEV] + run
+
+
+def rel_norm(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def slot_state(kv) -> list:
+    return [t.clone() for t in kv.tensors()]
+
+
+def set_slot_state(kv, saved: list) -> None:
+    for t, s in zip(kv.tensors(), saved):
+        t.copy_(s)
+
+
+def fill_slots(kv, reqs) -> list:
+    """Admit the first ``max_batch`` requests into slots 0.. -> their first
+    tokens."""
+    return [kv.admit(slot, r.prompt)
+            for slot, r in enumerate(reqs[:kv.max_batch])]
+
+
+def graph_vs_eager(kv, steps: int = 3) -> list:
+    """From the current slot state, ``steps`` decodes, each replayed and
+    then run eagerly from the same state: True where tokens, logits,
+    cursors and every cache tensor agree bit for bit."""
+    same = []
+    for _ in range(steps):
+        saved = slot_state(kv)
+        tok_g = kv.decode()
+        after = slot_state(kv)
+        set_slot_state(kv, saved)
+        tok_e = kv.decode(eager=True)
+        same.append(bool(np.array_equal(tok_g, tok_e)) and all(
+            torch.equal(a, b) for a, b in zip(kv.tensors(), after)))
+    return same
+
+
+def oneshot_reference(model, reqs, max_seq: int) -> dict:
+    """Each request's greedy continuation through the one-shot path
+    (requests of one prompt length and budget batched together) and, at
+    each position, the top-2 margin of its logits and the top logit:
+    {rid: (tokens, margins, tops)}."""
+    vocab = model.cfg.vocab_size
+    groups = {}
+    for r in reqs:
+        groups.setdefault((len(r.prompt), r.max_new_tokens), []).append(r)
+    out = {}
+    from repro_torch.serve import merge_prefill_cache
+    for (plen, steps), rs in groups.items():
+        prompts = torch.from_numpy(np.stack([r.prompt for r in rs])).to(DEV)
+        logits, pre = model.prefill_fn({"tokens": prompts})
+        cache = merge_prefill_cache(model.init_cache(len(rs), max_seq), pre)
+        cache["t"] = plen
+        toks, margins, tops = [], [], []
+        for i in range(steps):
+            top = torch.topk(logits[:, :vocab], 2, dim=-1).values
+            margins.append((top[:, 0] - top[:, 1]).cpu())
+            tops.append(top[:, 0].cpu())
+            toks.append(torch.argmax(logits[:, :vocab], -1))
+            if i + 1 < steps:
+                logits, cache = model.decode_fn(cache, toks[-1][:, None])
+        toks = torch.stack(toks, 1).cpu().tolist()
+        margins = torch.stack(margins, 1).tolist()
+        tops = torch.stack(tops, 1).tolist()
+        for j, r in enumerate(rs):
+            out[r.rid] = (toks[j], margins[j], tops[j])
+    return out
+
+
+def against_oneshot(comps, ref: dict, tol: tuple) -> dict:
+    """The margin rule: a continuous request must equal its one-shot
+    continuation, or first diverge at a position whose one-shot top-2
+    margin is below the bf16 tolerance ``tol`` = (rtol, atol) at its top
+    logit x, atol + rtol·|x| (a near-tie the batching can flip)."""
+    rtol, atol = tol
+    agree, excused, bad = 0, [], []
+    for c in comps:
+        want, margins, tops = ref[c.rid]
+        i = next((i for i, (a, b) in enumerate(zip(c.tokens, want))
+                  if a != b), None)
+        if i is None and len(c.tokens) == len(want):
+            agree += 1
+            continue
+        row = {"rid": c.rid, "position": i}
+        if i is not None:
+            row.update(margin=margins[i], top=tops[i],
+                       allowed=atol + rtol * abs(tops[i]))
+        (excused if i is not None and margins[i] < row["allowed"]
+         else bad).append(row)
+    return {"requests": len(comps), "agree_in_full": agree,
+            "diverged_at_near_tie": excused, "diverged": bad,
+            "margin_rtol_atol": list(tol)}
+
+
+def against_full_forward(model, kv, reqs) -> list:
+    """Requests admitted into slots 0.. of ``kv`` and decoded
+    FULL_FORWARD_STEPS steps through the decode graph: the prefill logits
+    and each step's logits (``kv.logits``) against the full forward over
+    the prompt and the generated tokens, relative in norm."""
+    from repro_torch.models import transformer as T
+    kv.active.fill_(False)
+    pre_logits, gen = [], []
+    for slot, r in enumerate(reqs):
+        gen.append([kv.admit(slot, r.prompt)])
+        pre_logits.append(model.prefill_fn({"tokens": torch.from_numpy(
+            r.prompt[None]).to(DEV)})[0][0])
+    step_logits = []
+    for _ in range(FULL_FORWARD_STEPS):
+        toks = kv.decode()
+        step_logits.append(kv.logits[:len(reqs)].clone())
+        for i in range(len(reqs)):
+            gen[i].append(int(toks[i]))
+    out = []
+    for i, r in enumerate(reqs):
+        seq = np.concatenate([r.prompt, gen[i][:FULL_FORWARD_STEPS]])
+        with torch.no_grad():
+            h, _ = T.forward(model.module, torch.from_numpy(seq[None]).to(DEV),
+                             remat=False)
+            full = T.logits_head(model.module, h)[0]
+        plen = len(r.prompt)
+        out.append({"rid": r.rid, "prompt": plen,
+                    "prefill": rel_norm(pre_logits[i], full[plen - 1]),
+                    "decode": [rel_norm(step_logits[j][i], full[plen + j])
+                               for j in range(FULL_FORWARD_STEPS)]})
+        kv.retire(i)
+    return out
+
+
+def decode_times(kv, reps: int = 20) -> dict:
+    """ms per decode step with every slot parked (each slot still runs the
+    whole step; the cursors stay): the graph's device time (``cuda_ms`` of
+    one replay), and host walls of ``decode()`` (replay and token fetch)
+    and ``decode(eager=True)``. The state is restored afterwards."""
+    saved = slot_state(kv)
+    kv.active.fill_(False)
+    graph_dev = cuda_ms(kv._graph.replay)
+    profile = replay_profile(kv)
+    ops = eager_op_profile(kv)
+    walls = {}
+    for name, eager in (("graph_wall", False), ("eager_wall", True)):
+        kv.decode(eager=eager)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            kv.decode(eager=eager)
+        walls[name] = (time.perf_counter() - t0) / reps * 1e3
+    set_slot_state(kv, saved)
+    return {"graph_device": graph_dev, **walls, "replay_profile": profile,
+            "eager_ops": ops}
+
+
+def eager_op_profile(kv, top: int = 10) -> list:
+    """``torch.profiler`` over one eager decode step: the device time its
+    kernels took, by the PyTorch operator that launched them (self time),
+    largest first. The same kernels as a replay, named by operator."""
+    from torch.profiler import ProfilerActivity, profile
+    kv.decode(eager=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        kv.decode(eager=True)
+        torch.cuda.synchronize()
+    rows = sorted(((e.self_device_time_total, e.key, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CPU
+                   and e.self_device_time_total > 0), reverse=True)
+    return [{"op": k, "ms": t / 1e3, "calls": c} for t, k, c in rows[:top]]
+
+
+def replay_profile(kv, reps: int = 3) -> dict:
+    """``torch.profiler`` over ``reps`` replays of the decode graph: the
+    kernels a replay runs (CUPTI may drop a few of a graph's records) and
+    their device time, with the largest entries."""
+    from torch.profiler import ProfilerActivity, profile
+    kv._graph.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            kv._graph.replay()
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    total = sum(t for t, _, _ in rows)
+    return {"kernels_per_replay": sum(c for _, _, c in rows) / reps,
+            "device_ms_per_replay": total / 1e3 / reps,
+            "top": [{"name": k[:80], "ms": t / 1e3 / reps, "calls": c / reps}
+                    for t, k, c in rows[:8]]}
+
+
+def decode_bound_ms(model, kv) -> tuple:
+    """(bound ms, weight bytes, live KV and state bytes) of one decode step
+    from the current slot state: the weights read once, each active slot's
+    KV up to its cursor read once, the SSM states read and written, the
+    logits written, over the card's memory rate."""
+    weights = sum(p.numel() * p.element_size() for p in model.params())
+    leaves = ([(t, 0) for e in kv.cache["prefix"] for t in e]
+              + [(t, 1) for e in kv.cache["blocks"] for t in e])
+    per_pos, state = 0, 0
+    for t, lead in leaves:
+        if t.shape[lead + 1] == kv.max_seq:      # (.., B, S, ..): by position
+            per_pos += t.numel() // (kv.max_batch * kv.max_seq) * t.element_size()
+        else:                                    # SSM conv and SSD state
+            state += 2 * t.numel() * t.element_size()
+    positions = int(((kv.cache["t"] + 1) * kv.active).sum())
+    live = positions * per_pos + state + kv.logits.numel() * 4
+    return (weights + live) / MEM_BYTES_PER_S * 1e3, weights, live
+
+
+def prefill_ms(kv, lengths, reps: int = 3) -> dict:
+    """Host wall of a B=1 prefill (to its first token), median of reps."""
+    out = {}
+    rng = np.random.RandomState(5)
+    for n in lengths:
+        p = rng.randint(0, kv.model.cfg.vocab_size, size=n).astype(np.int32)
+        kv.prefill(p)
+        ts = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            kv.prefill(p)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        out[str(n)] = float(np.median(ts))
+    return out
+
+
+def count_moe_drops(kv) -> dict:
+    """(token, expert) pairs dropped by capacity in one eager decode step
+    from the current slot state (the state is restored): the router's
+    choices recorded per MoE layer, then the reference's slot positions
+    (an exclusive cumsum, token-major) against C."""
+    from repro_torch.models import moe as M
+    cfg = kv.model.cfg
+    seen, router = [], M._router
+
+    def recording(p, x, k):
+        out = router(p, x, k)
+        seen.append(out[2])
+        return out
+    saved = slot_state(kv)
+    M._router = recording
+    try:
+        kv.decode(eager=True)
+    finally:
+        M._router = router
+    set_slot_state(kv, saved)
+    B = kv.max_batch
+    C = M._capacity(B, cfg.top_k, cfg.num_experts, cfg.moe_capacity_factor)
+    dropped = 0
+    for idx in seen:
+        flat = M._one_hot(idx, cfg.num_experts, torch.int32).reshape(
+            B * cfg.top_k, cfg.num_experts)
+        pos = ((torch.cumsum(flat, 0) - flat) * flat).sum(-1)
+        dropped += int((pos >= C).sum())
+    return {"moe_layers": len(seen), "capacity": C, "pairs": B * cfg.top_k,
+            "dropped_pairs_first_step": dropped}
+
+
+def serve_summary(res: dict) -> dict:
+    from repro_torch.obs.stats import percentile
+    comps = res["completions"]
+    gaps = [g for c in comps for g in c.token_times[1:]]
+    return {"tokens": res["tokens"], "seconds": res["seconds"],
+            "tokens_per_s": res["tokens"] / res["seconds"],
+            "token_gap_ms_p50": percentile(gaps, 50) * 1e3,
+            "token_gap_ms_p95": percentile(gaps, 95) * 1e3,
+            "warmup_seconds": res["warmup_seconds"],
+            "compile_counts": res["scheduler"].kv.compile_counts()}
+
+
+def serve_checks(model_name: str, res: dict, *, oneshot: bool,
+                 drops: bool) -> dict:
+    """The checks of a continuous run of the serve launcher: one capture;
+    graph replay against eager decode, bit for bit, from a state with
+    every slot filled; with ``oneshot`` the run's tokens against the
+    one-shot path under the margin rule; with ``drops`` the MoE capacity
+    drops of the first decode step of that state."""
+    from repro_torch.launch.serve import workload, parse_args
+    model, kv = res["model"], res["scheduler"].kv
+    args = parse_args(serve_args(model_name, SERVE_ZOO_RUN))
+    out = serve_summary(res)
+    reqs = workload(args, model.cfg.vocab_size)
+    if oneshot:
+        out["against_oneshot"] = against_oneshot(
+            res["completions"], oneshot_reference(model, reqs, kv.max_seq),
+            margin_tol())
+    fill_slots(kv, reqs)
+    if drops:
+        out["moe"] = count_moe_drops(kv)
+    out["graph_equals_eager"] = graph_vs_eager(kv)
+    out["decode_ms"] = decode_times(kv)
+    out["bound_ms"], out["weight_bytes"], out["live_kv_bytes"] = \
+        decode_bound_ms(model, kv)
+    out["cache_bytes"] = sum(t.numel() * t.element_size() for t in kv.tensors())
+    out["captures"] = kv.compile_counts()["decode"]
+    for slot in range(kv.max_batch):
+        kv.retire(slot)
+    return out
+
+
+def gate_serve(name: str, out: dict) -> None:
+    if out["captures"] != 1:
+        raise SystemExit(f"{name}: decode graph captured {out['captures']} "
+                         f"times, not once")
+    if not all(out["graph_equals_eager"]):
+        raise SystemExit(f"{name}: graph replay differs from eager decode: "
+                         f"{out['graph_equals_eager']}")
+    if "against_oneshot" in out and out["against_oneshot"]["diverged"]:
+        raise SystemExit(f"{name}: continuous and one-shot diverge where no "
+                         f"near-tie excuses it: "
+                         f"{out['against_oneshot']['diverged'][:4]}")
+
+
+def phase_serve():
+    """``paper-transformer`` base through the serve launcher's continuous
+    engine (48 mixed-length requests on 16 slots of 1024 positions), then
+    its checks: one capture, graph against eager bit for bit, the run
+    against the one-shot path under the margin rule, and 3 requests'
+    prefill and first decode steps against the full forward. Prints
+    tokens/s, token gaps, prefill ms by prompt length, decode ms (graph,
+    eager), the step's bytes bound, peak memory and cache bytes."""
+    from repro_torch.launch import serve as launcher
+    from repro_torch.launch.serve import parse_args, workload
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    res = launcher.main(serve_args("transformer", SERVE_RUN))
+    model, kv = res["model"], res["scheduler"].kv
+    out = serve_summary(res)
+    reqs = workload(parse_args(serve_args("transformer", SERVE_RUN)),
+                    model.cfg.vocab_size)
+    out["against_oneshot"] = against_oneshot(
+        res["completions"], oneshot_reference(model, reqs, kv.max_seq),
+        margin_tol())
+    out["against_full_forward"] = against_full_forward(model, kv, reqs[:3])
+    out["prefill_ms"] = prefill_ms(kv, (128, 256, 512))
+    fill_slots(kv, reqs)
+    for _ in range(8):
+        kv.decode()
+    out["graph_equals_eager"] = graph_vs_eager(kv)
+    out["decode_ms"] = decode_times(kv)
+    out["bound_ms"], out["weight_bytes"], out["live_kv_bytes"] = \
+        decode_bound_ms(model, kv)
+    out["cursors"] = kv.cache["t"].tolist()
+    out["cache_bytes"] = sum(t.numel() * t.element_size() for t in kv.tensors())
+    out["captures"] = kv.compile_counts()["decode"]
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["params"] = sum(p.numel() for p in model.params())
+    out["seconds_phase"] = time.perf_counter() - t0
+    emit("serve", config=model.cfg.name, **out)
+    gate_serve("serve", out)
+    worst = max(max(r["prefill"] / SERVE_TOL["prefill"],
+                    max(r["decode"]) / SERVE_TOL["decode"])
+                for r in out["against_full_forward"])
+    if worst > 1.0:
+        raise SystemExit(f"serve: cached prefill/decode against the full "
+                         f"forward: {out['against_full_forward']}")
+
+
+def phase_serve_oneshot():
+    """The one-shot engine at batch 16, prompt 512, 64 steps: tokens/s."""
+    from repro_torch.launch import serve as launcher
+    t0 = time.perf_counter()
+    res = launcher.main(serve_args("transformer", ONESHOT_RUN))
+    out = res["out"]
+    emit("serve_oneshot", config=res["model"].cfg.name, batch=16, prompt=512,
+         steps=64, tokens=res["tokens"], seconds=res["seconds"],
+         tokens_per_s=res["tokens"] / res["seconds"],
+         warmup_seconds=res["warmup_seconds"], shape=list(out.shape),
+         seconds_phase=time.perf_counter() - t0)
+    if out.shape != (16, 512 + 64):
+        raise SystemExit(f"serve_oneshot: output shape {out.shape}")
+
+
+def phase_serve_zoo(model: str):
+    """``paper-ssm`` or ``paper-moe`` base, continuous, 16 requests: graph
+    against eager bit for bit; the SSM also against the one-shot path
+    under the margin rule; the MoE's capacity drops at the first decode
+    step (its tokens depend on the co-batched slots, so no one-shot
+    comparison)."""
+    from repro_torch.launch import serve as launcher
+    t0 = time.perf_counter()
+    res = launcher.main(serve_args(model, SERVE_ZOO_RUN))
+    out = serve_checks(model, res, oneshot=model == "ssm",
+                       drops=model == "moe")
+    out["seconds_phase"] = time.perf_counter() - t0
+    emit(f"serve_{model}", config=res["model"].cfg.name, **out)
+    gate_serve(f"serve_{model}", out)
+
+
+def phase_serve_arch():
+    """Each reduced architecture in bf16: prefill and 8 decode steps
+    against the full forward (relative in norm, SERVE_TOL), and a cursor
+    vector against a scalar cursor; whisper (enc-dec) and InternVL2 (VLM)
+    through the one-shot engine only (their tokens from ``generate``)."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import ServeEngine, merge_prefill_cache
+    from repro_torch.models.api import frontend_embeds
+    from repro_torch.serve.slots import UNSERVABLE_FAMILIES
+    for arch in ARCH_IDS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch).reduced()
+        m = build_model(cfg, kernels="cuda", param_dtype=torch.bfloat16,
+                        device=DEV)
+        m.init(0, max_seq=64)
+        B = 2
+        Sp = cfg.num_image_tokens + 4 if cfg.family == "vlm" else 8
+        S = Sp + 8
+        tokens = torch.from_numpy(np.random.RandomState(0).randint(
+            0, cfg.vocab_size, size=(B, S))).to(DEV)
+        fe = frontend_embeds(cfg, B, DEV)
+        batch = {"tokens": tokens[:, :Sp]}
+        if fe is not None:
+            batch["frontend_embeds"] = fe
+        with torch.no_grad():
+            h, _ = T.forward(m.module, tokens, fe, remat=False)
+            full = T.logits_head(m.module, h)
+        logits, pre = m.prefill_fn(batch)
+        errs = {"prefill": rel_norm(logits, full[:, Sp - 1]), "decode": []}
+        cache = merge_prefill_cache(m.init_cache(B, S), pre)
+        cache["t"] = Sp
+        for t in range(Sp, S):
+            logits, cache = m.decode_fn(cache, tokens[:, t:t + 1])
+            errs["decode"].append(rel_norm(logits, full[:, t]))
+        out = {"arch": arch, "family": cfg.family, "errors": errs}
+        if cfg.family in UNSERVABLE_FAMILIES:
+            gen = ServeEngine(m, max_seq=S).generate(
+                tokens[:, :Sp].cpu().numpy(), steps=4)
+            out["engine"] = "oneshot"
+            out["generated"] = gen[:, Sp:].tolist()
+        else:
+            def decode_with(t):
+                c = merge_prefill_cache(m.init_cache(B, S), pre)
+                c["t"] = t
+                return m.decode_fn(c, tokens[:, Sp:Sp + 1])[0]
+            vec = torch.full((B,), Sp, dtype=torch.int64, device=DEV)
+            out["engine"] = "oneshot+slots"
+            out["vector_vs_scalar"] = rel_norm(decode_with(vec),
+                                               decode_with(Sp))
+        out["seconds"] = time.perf_counter() - t0
+        emit("serve_arch", config=cfg.name, **out)
+        if (errs["prefill"] > SERVE_TOL["prefill"]
+                or max(errs["decode"]) > SERVE_TOL["decode"]
+                or out.get("vector_vs_scalar", 0.0) > SERVE_TOL["decode"]):
+            raise SystemExit(f"serve_arch {arch}: {out}")
+
+
+def phase_train_and_serve():
+    """A trainer child (``paper-transformer`` base, the launcher through
+    ``--launch``) publishing every 4 of 8 steps while this process serves
+    with the watcher polled before every decode step: at least 2
+    generations served, no request dropped, a request that spans a swap,
+    and the served params equal to the file LATEST points to, by checksum.
+    Prints each swap's snapshot load seconds and decode stall."""
+    import tempfile
+
+    from repro_torch.models import build_model
+    from repro_torch.obs import MemorySink, MetricsRecorder
+    from repro_torch.serve import (ContinuousScheduler, Request,
+                                   SnapshotWatcher, read_pointer)
+    from repro_torch.serve.snapshot import params_checksum
+    from repro_torch.train.checkpoints import layout_for
+    t0 = time.perf_counter()
+    cfg = zoo_base("transformer")
+    m = build_model(cfg, kernels="cuda", param_dtype=torch.bfloat16,
+                    device=DEV)
+    m.init(0, max_seq=1024)
+    layout = layout_for(m.module)
+    sink = MemorySink()
+    rng = np.random.RandomState(0)
+    with tempfile.TemporaryDirectory(prefix="publish_", dir=ROOT) as d:
+        pub = os.path.join(d, "pub")
+        watcher = SnapshotWatcher(pub, m.params(), layout=layout,
+                                  recorder=MetricsRecorder([sink]))
+        snaps, poll = [], watcher.poll
+
+        def recording_poll():
+            snap = poll()
+            if snap is not None:
+                snaps.append((snap.path, snap.params_checksum))
+            return snap
+        watcher.poll = recording_poll
+        sched = ContinuousScheduler(m, max_batch=16, max_seq=1024,
+                                    watcher=watcher, swap_poll_every=1)
+        rid = 0
+
+        def feed_and_step():
+            nonlocal rid
+            while sched.pending < 16:
+                p = rng.randint(0, cfg.vocab_size, size=64).astype(np.int32)
+                sched.submit(Request(rid=rid, prompt=p, max_new_tokens=16))
+                rid += 1
+            sched.step()
+
+        while len(sched.completions) < 16:     # generation 0 first
+            feed_and_step()
+        child = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--launch",
+             os.path.join(d, "train.json")]
+            + train_args("transformer", PUBLISH_STEPS)
+            + ["--publish-dir", pub, "--publish-every", str(PUBLISH_EVERY)])
+        try:
+            deadline = time.perf_counter() + 600
+            while child.poll() is None and time.perf_counter() < deadline:
+                feed_and_step()
+            child.wait(timeout=60)
+            sched.poll_snapshot()              # the final snapshot
+            while sched.pending:
+                sched.step()
+        finally:
+            child.kill()
+        final, snap_checksum = snaps[-1] if snaps else ("", None)
+        pointer = read_pointer(pub)
+        served = params_checksum(m.params(), layout)
+    comps = sched.completions
+    gens = sorted({c.gen_finished for c in comps})
+    loads = {e["data"]["generation"]: e["data"]["seconds"]
+             for e in sink.by_name("serve.snapshot_load")}
+    swaps = [{"step": e.step, "generation": e.generation,
+              "trainer_step": e.trainer_step,
+              "snapshot_load_seconds": loads.get(e.generation),
+              "decode_stall_seconds": e.load_seconds}
+             for e in sched.swap_events]
+    last_snap = sched.swap_events[-1] if sched.swap_events else None
+    out = dict(config=cfg.name, trainer_steps=PUBLISH_STEPS,
+               publish_every=PUBLISH_EVERY, child_rc=child.returncode,
+               requests=rid, completions=len(comps), generations=gens,
+               swaps=swaps,
+               spanning=sum(c.gen_admitted != c.gen_finished for c in comps),
+               all_full=all(len(c.tokens) == 16 for c in comps),
+               final_snapshot=os.path.basename(final),
+               pointer=os.path.basename(pointer or ""),
+               served_checksum=served,
+               snapshot_checksum=snap_checksum,
+               compile_counts=sched.kv.compile_counts(),
+               seconds=time.perf_counter() - t0)
+    emit("train_and_serve", **out)
+    if child.returncode != 0:
+        raise SystemExit(f"train_and_serve: trainer exited {child.returncode}")
+    if len(gens) < 2 or last_snap is None:
+        raise SystemExit(f"train_and_serve: generations served {gens}")
+    if sorted(c.rid for c in comps) != list(range(rid)) or not out["all_full"]:
+        raise SystemExit("train_and_serve: a request was dropped or cut")
+    if not out["spanning"]:
+        raise SystemExit("train_and_serve: no request spans a swap")
+    if out["final_snapshot"] != out["pointer"] or \
+            served != out["snapshot_checksum"]:
+        raise SystemExit("train_and_serve: served params differ from the "
+                         "file LATEST points to")
+    if out["compile_counts"]["decode"] != 1:
+        raise SystemExit(f"train_and_serve: {out['compile_counts']}")
+
+
+def serve_phases():
+    phase_serve()
+    phase_serve_oneshot()
+    for model in ("ssm", "moe"):
+        phase_serve_zoo(model)
+    phase_serve_arch()
+    phase_train_and_serve()
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
@@ -1539,6 +2149,9 @@ def main():
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         return profile_chunked_child(sys.argv[2], json.loads(sys.argv[3]))
+    if sys.argv[1:2] == ["--serve-only"]:
+        phase_device()
+        return serve_phases()
     smi = phase_device()
     phase_build()
     main_checks = phase_checks()
@@ -1562,6 +2175,7 @@ def main():
     phase_profile_dir()
     phase_eval_cnn()
     phase_resume(phase_sched(train["transformer"], chunked["transformer"]))
+    serve_phases()
     kernels = []
     for name, path, replaces in (
             ("fused_xent", "transformer",

@@ -35,6 +35,9 @@ ISGD state, policy table, step; the JAX package's format) at the first
 step or chunk boundary past each multiple of N; ``--resume`` restores the
 newest one in place and continues from its step, on the uninterrupted
 run's trajectory bit for bit (a resumed fused run may start mid-chunk).
+``--publish-dir D --publish-every N`` publishes an engine checkpoint every
+N steps into D with the atomic ``LATEST`` pointer that a serving process
+polls (``python -m repro_torch.launch.serve --watch --publish-dir D``).
 
 ``--obs-dir D`` writes the run's telemetry (``repro_torch.obs``) to
 ``D/metrics.p0.jsonl`` and ``D/summary.json``: the SPC control chart, step
@@ -81,6 +84,7 @@ from repro_torch.data import (DeviceRing, FCPRSampler, make_lm_tokens,
 from repro_torch.device import resolve_device
 from repro_torch.kernels import KERNEL_CHOICES, build
 from repro_torch.models import build_model
+from repro_torch.models.api import frontend_embeds as api_frontend_embeds
 from repro_torch.obs import (ConsoleSink, JsonlSink, MetricsRecorder,
                              TrainObserver, jsonl_path, maybe_profile,
                              write_merged_summary)
@@ -147,6 +151,16 @@ def parse_args(argv=None):
     ap.add_argument("--checkpoint-every", type=int, default=0,
                     help="checkpoint cadence in steps (saved at the first "
                          "step/chunk boundary past each mark).  0 = never")
+    ap.add_argument("--publish-dir", default=None,
+                    help="train-and-serve: directory where full-engine "
+                         "checkpoints are published for a live serving "
+                         "process (atomic LATEST pointer; a "
+                         "repro_torch.serve.SnapshotWatcher hot-swaps each "
+                         "one between decode steps).  May equal "
+                         "--checkpoint-dir")
+    ap.add_argument("--publish-every", type=int, default=0,
+                    help="publish cadence in steps (0 = inherit "
+                         "--checkpoint-every)")
     ap.add_argument("--resume", action="store_true",
                     help="resume from the newest complete checkpoint in "
                          "--checkpoint-dir (a resumed run continues the "
@@ -186,16 +200,11 @@ def resolve_config(args):
 
 def frontend_embeds(cfg, batch_size: int, device) -> dict:
     """Constant zero frontend embeddings in bf16 for a VLM (image tokens)
-    or an enc-dec model (audio frames), as the JAX launcher makes them;
-    {} for the other families."""
-    if cfg.family == "vlm":
-        shape = (batch_size, cfg.num_image_tokens, cfg.d_model)
-    elif cfg.family == "encdec":
-        shape = (batch_size, cfg.encoder_seq, cfg.d_model)
-    else:
-        return {}
-    return {"frontend_embeds": torch.zeros(shape, dtype=torch.bfloat16,
-                                           device=device)}
+    or an enc-dec model (audio frames), as the JAX launcher makes them
+    (``models.api.frontend_embeds``), as a batch entry; {} for the other
+    families."""
+    fe = api_frontend_embeds(cfg, batch_size, device)
+    return {} if fe is None else {"frontend_embeds": fe}
 
 
 def ring_epoch(cfg, sampler, batch_size: int, device) -> dict:
@@ -219,13 +228,55 @@ class WithExtras:
         return dict(self.sampler(j), **self.extra)
 
 
+class _TeeCheckpointer:
+    """Fan a run's saves out to several ``Checkpointer``s: the
+    crash-recovery directory and the serving publish directory can differ
+    (cadence, pruning) without threading two objects through the step
+    loops. ``latest``, ``layout`` and ``recorder`` are the first's."""
+
+    def __init__(self, ckpts):
+        self.ckpts = ckpts
+        self.directory = ckpts[0].directory
+        self.layout = ckpts[0].layout
+        self.recorder = ckpts[0].recorder
+
+    def maybe_save(self, step, **kw):
+        outs = [c.maybe_save(step, **kw) for c in self.ckpts]
+        return next((o for o in outs if o), None)
+
+    def mark(self, step):
+        for c in self.ckpts:
+            c.mark(step)
+
+    def latest(self):
+        return self.ckpts[0].latest()
+
+
 def _make_checkpointer(args, layout, recorder=None):
     """``--checkpoint-dir``/``--checkpoint-every`` -> a ``Checkpointer``
-    naming the params by ``layout``, or None when checkpoints are off."""
-    if not args.checkpoint_dir:
+    naming the params by ``layout``; ``--publish-dir`` adds (or, when it is
+    the same directory, upgrades to) a publishing one that keeps the atomic
+    ``LATEST`` pointer a serving ``SnapshotWatcher`` polls. None when both
+    are off."""
+    publish = args.publish_dir
+    same = bool(publish and args.checkpoint_dir and os.path.abspath(publish)
+                == os.path.abspath(args.checkpoint_dir))
+    ckpts = []
+    if args.checkpoint_dir:
+        ckpts.append(Checkpointer(args.checkpoint_dir,
+                                  every=args.checkpoint_every, pointer=same,
+                                  layout=layout, recorder=recorder))
+    if publish and not same:
+        every = args.publish_every or args.checkpoint_every
+        if not every:
+            raise SystemExit("--publish-dir needs --publish-every (or "
+                             "--checkpoint-every) to set the snapshot "
+                             "cadence")
+        ckpts.append(Checkpointer(publish, every=every, pointer=True,
+                                  layout=layout, recorder=recorder))
+    if not ckpts:
         return None
-    return Checkpointer(args.checkpoint_dir, every=args.checkpoint_every,
-                        layout=layout, recorder=recorder)
+    return ckpts[0] if len(ckpts) == 1 else _TeeCheckpointer(ckpts)
 
 
 def _maybe_resume(args, ckpt, *, params_like, state_like, sched_like=None):

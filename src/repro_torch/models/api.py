@@ -1,7 +1,13 @@
-"""Model API: ``build_model(cfg, ...)`` -> ``Model``, the surface the trainer
-and the launcher use. Port of the training half of ``repro.models.api``,
-for every family the JAX package trains (dense, moe, ssm, hybrid, encdec,
-vlm).
+"""Model API: ``build_model(cfg, ...)`` -> ``Model``, the surface the
+trainer, the launchers and the serving engines use. Port of
+``repro.models.api``, for every family the JAX package trains (dense, moe,
+ssm, hybrid, encdec, vlm):
+
+  init(seed, max_seq)      -> the module, filled in place
+  loss_fn(batch)           -> (total_loss, data_loss)        [train]
+  prefill_fn(batch)        -> (last logits, caches)          [serve]
+  decode_fn(cache, tokens) -> (logits, cache)                [serve]
+  init_cache(B, S)         -> zero caches on the model's device
 
 ``kernels`` picks the mixer and loss implementations at build time:
 
@@ -16,7 +22,10 @@ vlm).
     ``"reference"``.
 
 Nothing is resolved behind the caller's back: the requested mode is the
-mode that runs.
+mode that runs. Serving (``prefill_fn``, ``decode_fn``) runs the plain
+paths under either mode, as ``repro/models/api.py`` serves: its prefill
+and decode call ``T.prefill``/``T.decode_step`` without ``use_pallas``,
+so the JAX package runs no Pallas kernel there either.
 """
 from __future__ import annotations
 
@@ -31,6 +40,20 @@ from repro_torch.kernels import KERNEL_CHOICES
 from repro_torch.models import transformer as T
 
 
+def frontend_embeds(cfg, B: int, device):
+    """Zero bf16 frontend embeddings (B, n, d) for a VLM (its image
+    tokens) or an enc-dec model (its audio frames), as the reference's
+    launchers and serving engine make them; None for the other
+    families."""
+    if cfg.family == "vlm":
+        shape = (B, cfg.num_image_tokens, cfg.d_model)
+    elif cfg.family == "encdec":
+        shape = (B, cfg.encoder_seq, cfg.d_model)
+    else:
+        return None
+    return torch.zeros(shape, dtype=torch.bfloat16, device=device)
+
+
 @dataclass
 class Model:
     cfg: ModelConfig
@@ -38,6 +61,9 @@ class Model:
     kernels: str
     init: Callable               # (seed, max_seq) -> module, filled in place
     loss_fn: Callable            # (batch) -> (total_loss, data_loss)
+    prefill_fn: Callable         # (batch) -> (last logits, caches)
+    decode_fn: Callable          # (cache, tokens (B, 1)) -> (logits, cache)
+    init_cache: Callable         # (B, S) -> zero caches
 
     def params(self) -> list:
         return list(self.module.parameters())
@@ -65,4 +91,14 @@ def build_model(cfg: ModelConfig, *, kernels: str = "cuda",
         return T.lm_loss_fn(module, batch, remat=remat,
                             use_kernels=use_kernels)
 
-    return Model(cfg, module, kernels, init, loss_fn)
+    def prefill_fn(batch):
+        return T.prefill(module, batch["tokens"], batch.get("frontend_embeds"))
+
+    def decode_fn(cache, tokens):
+        return T.decode_step(module, cache, tokens)
+
+    def init_cache(B: int, S: int):
+        return T.init_cache(cfg, B, S, device=dev)
+
+    return Model(cfg, module, kernels, init, loss_fn, prefill_fn, decode_fn,
+                 init_cache)

@@ -2,15 +2,25 @@
 with an optional sliding window, cross attention (enc-dec) and DeepSeek-V2
 multi-head latent attention (MLA).
 
-Port of the training half of ``repro.models.layers`` (the decode halves
-come with serving). Weights keep the JAX layout (``x @ W`` with ``W:
+Port of ``repro.models.layers``: the full-sequence paths, which return
+their cache entries on request (``want_cache``), and the one-token decode
+paths of serving (``decode_attend``, ``attn_decode``, ``mla_decode``).
+Weights keep the JAX layout (``x @ W`` with ``W:
 (d_in, d_out)``), so moving weights between the packages is a copy.
 Functions take their weights explicitly.
 
 Only GQA self-attention has a kernel (``gqa_flash``). Cross attention and
 MLA run ``_attend_chunked`` in either kernel mode, as the JAX package runs
 them outside its Pallas kernel; MLA's q/k width (dn + dr) also differs from
-its v width, which ``gqa_flash`` does not take.
+its v width, which ``gqa_flash`` does not take. The decode paths run
+plain PyTorch under either kernel mode, as the JAX package's serving runs
+no Pallas kernel.
+
+Serving keeps its caches in bf16 whatever the compute dtype (the
+reference's ``init_cache``), so a decode path may meet an f32 activation
+and a bf16 cache entry; ``_mm`` and ``decode_attend`` promote as
+``jnp.matmul``/``jnp.einsum`` do (bf16 with f32 is f32), where a torch
+product of mixed dtypes would raise.
 """
 from __future__ import annotations
 
@@ -48,6 +58,12 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def _mm(a, w):
+    """``a @ w`` with JAX's dtype promotion."""
+    ct = torch.promote_types(a.dtype, w.dtype)
+    return a.to(ct) @ w.to(ct)
 
 
 def gelu(x):
@@ -94,8 +110,10 @@ def _attend_chunked(q, k, v, *, causal: bool, window: Optional[int],
 
 
 def attn_forward(p, cfg, x, positions, *, window, use_rope=True,
-                 use_kernel=False):
-    """Full-sequence causal attention. x: (B, S, d) -> (B, S, d).
+                 use_kernel=False, want_cache=False):
+    """Full-sequence causal attention. x: (B, S, d) -> (B, S, d), or with
+    ``want_cache`` (out, (k, v)): the keys after RoPE and the values, (B,
+    S, K, hd), the layer's cache entry.
 
     ``use_kernel`` routes the attention core through ``gqa_flash`` (the
     CUDA kernel on the card); otherwise the chunked reference path runs.
@@ -113,7 +131,97 @@ def attn_forward(p, cfg, x, positions, *, window, use_rope=True,
         o = gqa_flash(q, k, v, causal=True, window=window)
     else:
         o = _attend_chunked(q, k, v, causal=True, window=window)
-    return o.reshape(B, S, H * hd) @ p["wo"]
+    out = o.reshape(B, S, H * hd) @ p["wo"]
+    return (out, (k, v)) if want_cache else out
+
+
+def decode_attend(q, k_cache, v_cache, t, *, window: Optional[int]):
+    """One query token against a cache. q: (B, 1, H, hd); caches (B, S,
+    K, hd) (v's head dim may differ: MLA); ``t`` the new token's position,
+    a Python int (every row at it: the one-shot engine) or a (B,) tensor of
+    per-row cursors (continuous-batching slots). Keys at positions > t,
+    and with a window those at or before t − window, are masked; scores
+    f32, probabilities cast to the cache's dtype, as the reference's."""
+    B, _, H, hd = q.shape
+    S, K = k_cache.shape[1], k_cache.shape[2]
+    rep = H // K
+    ct = torch.promote_types(q.dtype, k_cache.dtype)
+    qr = q.reshape(B, K, rep, hd).to(ct)
+    s = torch.einsum("bkrd,bskd->bkrs", qr, k_cache.to(ct)).to(torch.float32)
+    s = s * (1.0 / math.sqrt(hd))
+    kpos = torch.arange(S, device=q.device)
+    tb = t[:, None] if _is_vector(t) else int(t)
+    mask = kpos[None, :] <= tb                                   # (B|1, S)
+    if window is not None:
+        mask = mask & (kpos[None, :] > tb - window)
+    s = torch.where(mask[:, None, None, :], s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    o = torch.einsum("bkrs,bskd->bkrd", p, v_cache)
+    return o.reshape(B, 1, H, v_cache.shape[-1])
+
+
+def _is_vector(t) -> bool:
+    return torch.is_tensor(t) and t.dim() == 1
+
+
+def _positions(t, device):
+    """Decode positions for RoPE: (B, 1) per-row cursors or (1, 1)."""
+    if _is_vector(t):
+        return t[:, None]
+    return torch.full((1, 1), int(t), device=device)
+
+
+def _write_at(cache, new, t):
+    """Write one token's entry ``new`` (B, 1, ...) into ``cache`` (B, S,
+    ...) in place: row b at ``t[b]`` for a cursor vector (an indexed
+    write, no host read), positions t..t for a scalar. The position must
+    lie below S: JAX clamps an index that does not, CUDA faults, so the
+    serving engines check it on the host."""
+    if _is_vector(t):
+        rows = torch.arange(cache.shape[0], device=cache.device)
+        cache[rows, t] = new[:, 0].to(cache.dtype)
+    else:
+        t = int(t)
+        cache[:, t:t + 1] = new.to(cache.dtype)
+    return cache
+
+
+def attn_decode(p, cfg, x, cache_k, cache_v, t, *, window, use_rope=True):
+    """One-token decode. x: (B, 1, d); caches (B, S, K, hd), written in
+    place at ``t`` (scalar, or a (B,) cursor per row) before the attend.
+    -> (out (B, 1, d), cache_k, cache_v)."""
+    B = x.shape[0]
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, 1, H, hd)
+    k = (x @ p["wk"]).reshape(B, 1, K, hd)
+    v = (x @ p["wv"]).reshape(B, 1, K, hd)
+    if use_rope:
+        pos = _positions(t, x.device)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    _write_at(cache_k, k, t)
+    _write_at(cache_v, v, t)
+    o = decode_attend(q, cache_k, cache_v, t, window=window)
+    return _mm(o.reshape(B, 1, H * hd), p["wo"]), cache_k, cache_v
+
+
+def cross_kv(p, cfg, enc_out):
+    """A cross-attention layer's cache entry: the encoder output's keys
+    and values (B, Se, K, hd)."""
+    B, Se, _ = enc_out.shape
+    K, hd = cfg.num_kv_heads, cfg.head_dim
+    return ((enc_out @ p["wk"]).reshape(B, Se, K, hd),
+            (enc_out @ p["wv"]).reshape(B, Se, K, hd))
+
+
+def cross_attn_decode(p, cfg, x, ck, cv):
+    """One decoder token against the cached encoder keys and values:
+    every encoder position is visible."""
+    B = x.shape[0]
+    H, hd = cfg.num_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, 1, H, hd)
+    o = decode_attend(q, ck, cv, ck.shape[1] - 1, window=None)
+    return _mm(o.reshape(B, 1, H * hd), p["wo"])
 
 
 def cross_attn_forward(p, cfg, x, enc_kv):
@@ -152,8 +260,8 @@ def _mla_attend(p, cfg, q_nope, q_rope, c_kv, k_rope, *, causal, q_offset=0):
     softmax scale is 1/√(dn + dr), the output width H·dv."""
     B, Sq, H, dn = q_nope.shape
     dv = cfg.v_head_dim
-    k_nope = (c_kv @ p["wk_b"]).reshape(B, -1, H, dn)
-    v = (c_kv @ p["wv_b"]).reshape(B, -1, H, dv)
+    k_nope = _mm(c_kv, p["wk_b"]).reshape(B, -1, H, dn)
+    v = _mm(c_kv, p["wv_b"]).reshape(B, -1, H, dv)
     k_rope_b = k_rope.expand(B, k_nope.shape[1], H, k_rope.shape[-1])
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope_b], dim=-1)
@@ -161,7 +269,45 @@ def _mla_attend(p, cfg, q_nope, q_rope, c_kv, k_rope, *, causal, q_offset=0):
     return o.reshape(B, Sq, H * dv) @ p["wo"]
 
 
-def mla_forward(p, cfg, x, positions):
-    """Full-sequence causal MLA. x: (B, S, d) -> (B, S, d)."""
+def mla_forward(p, cfg, x, positions, *, want_cache=False):
+    """Full-sequence causal MLA. x: (B, S, d) -> (B, S, d), or with
+    ``want_cache`` (out, (c_kv (B, S, r), k_rope (B, S, dr))): the
+    compressed cache."""
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, positions)
-    return _mla_attend(p, cfg, q_nope, q_rope, c_kv, k_rope, causal=True)
+    out = _mla_attend(p, cfg, q_nope, q_rope, c_kv, k_rope, causal=True)
+    return (out, (c_kv, k_rope.squeeze(2))) if want_cache else out
+
+
+def _mla_attend_decode(p, cfg, q_nope, q_rope, c_kv, k_rope_cache, t):
+    """One-token MLA with per-row cursors ``t`` (B,): the latent cache
+    expanded as in ``_mla_attend``, then ``decode_attend`` with K = H
+    (the chunked path's scalar ``q_offset`` cannot take a vector)."""
+    B, _, H, dn = q_nope.shape
+    dv = cfg.v_head_dim
+    k_nope = _mm(c_kv, p["wk_b"]).reshape(B, -1, H, dn)
+    v = _mm(c_kv, p["wv_b"]).reshape(B, -1, H, dv)
+    k_rope_b = k_rope_cache[:, :, None, :].expand(B, k_nope.shape[1], H,
+                                                  k_rope_cache.shape[-1])
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope_b], dim=-1)
+    o = decode_attend(q, k, v, t, window=None)
+    return _mm(o.reshape(B, 1, H * dv), p["wo"])
+
+
+def mla_decode(p, cfg, x, cache_ckv, cache_krope, t):
+    """One-token MLA. cache_ckv (B, S, r) and cache_krope (B, S, dr), the
+    compressed cache, written in place at ``t`` (scalar or (B,) cursors).
+    A scalar ``t`` attends through ``_mla_attend(q_offset=t)`` over the
+    whole cache (positions past t masked as causal), a vector through
+    ``_mla_attend_decode``. -> (out, cache_ckv, cache_krope)."""
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, _positions(t, x.device))
+    _write_at(cache_ckv, c_kv, t)
+    _write_at(cache_krope, k_rope[:, :, 0], t)
+    if _is_vector(t):
+        out = _mla_attend_decode(p, cfg, q_nope, q_rope, cache_ckv,
+                                 cache_krope, t)
+    else:
+        out = _mla_attend(p, cfg, q_nope, q_rope, cache_ckv,
+                          cache_krope[:, :, None, :], causal=True,
+                          q_offset=int(t))
+    return out, cache_ckv, cache_krope

@@ -1,7 +1,6 @@
 """Mixture-of-Experts layer: top-k router and GShard-style capacity dispatch.
 
-Port of the training half of ``repro.models.moe`` (``moe_decode`` comes
-with serving). Tokens are routed in groups of ``GROUP_SIZE``: within each
+Port of ``repro.models.moe``, serving's ``moe_decode`` included. Tokens are routed in groups of ``GROUP_SIZE``: within each
 group, one-hot dispatch and combine tensors of shape (g, E, C) move tokens
 to per-expert buffers of capacity C and back. Every shape is static and
 every sum a dense product, so a step captures into a CUDA graph as it is
@@ -107,3 +106,19 @@ def moe_forward(p, cfg, x):
         h = F.silu(x @ p["swg"]) * (x @ p["swi"])
         y = y + h @ p["swo"]
     return y, aux.mean()
+
+
+def moe_decode(p, cfg, x):
+    """Decode-time MoE. x: (B, 1, d) -> (y, aux): the whole batch routed as
+    one group of B tokens, so C = max(4, min(B, ⌊B·k·cf/E⌋)) slots an
+    expert and rows that are not decoding (a retired slot) still take
+    capacity: where slots drop, one row's output depends on the others,
+    as in the reference."""
+    B, _, d = x.shape
+    y, aux = _route_groups(p, x.reshape(1, B, d), cfg.top_k, cfg.num_experts,
+                           cfg.moe_capacity_factor)
+    y = y.reshape(B, 1, d)
+    if cfg.num_shared_experts:
+        h = F.silu(x @ p["swg"]) * (x @ p["swi"])
+        y = y + h @ p["swo"]
+    return y, aux[0]

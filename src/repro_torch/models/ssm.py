@@ -1,9 +1,11 @@
 """Mamba2 mixer, SSD (state-space duality) form [arXiv:2405.21060].
 
-Port of the training half of ``repro.models.ssm``: the within-chunk
-computation as decay-masked block products, the cross-chunk recurrence as
-a loop over the ``S/chunk`` chunk states. ``ssm_decode`` (serving) is not
-ported yet.
+Port of ``repro.models.ssm``: the within-chunk computation as
+decay-masked block products, the cross-chunk recurrence as a loop over the
+``S/chunk`` chunk states, and serving's one-token recurrent update
+(``ssm_decode``). A prefill's cache entry is ``(conv_state, ssd_state)``:
+the last ``conv_width − 1`` rows of ``xBC`` before the convolution and
+the final SSD state.
 
 One deliberate difference from the reference's ``_segsum``: the decay
 matrix (in ``ssd_intra_chunk_plain``, which ``ssd_chunked`` calls) is
@@ -73,8 +75,11 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
     return y, state
 
 
-def ssm_forward(p, cfg, x, *, use_kernel: bool = False):
-    """Full-sequence Mamba2 mixer. x: (B, S, d) -> (B, S, d).
+def ssm_forward(p, cfg, x, *, use_kernel: bool = False,
+                want_cache: bool = False):
+    """Full-sequence Mamba2 mixer. x: (B, S, d) -> (B, S, d), or with
+    ``want_cache`` (out, (conv_state (B, cw − 1, C), ssd_state (B, nh, hd,
+    ds) f32)).
 
     ``use_kernel`` routes the SSD core through ``ssd_chunked_kernel`` (the
     CUDA kernel on the card); otherwise the plain ``ssd_chunked`` runs."""
@@ -82,6 +87,7 @@ def ssm_forward(p, cfg, x, *, use_kernel: bool = False):
     di, nh, hd = cfg.d_inner, cfg.ssm_nheads, cfg.ssm_headdim
     G, ds = cfg.ssm_ngroups, cfg.ssm_state
     z, xBC, dt = _split_proj(cfg, x @ p["in_proj"])
+    tail = xBC[:, -(cfg.conv_width - 1):, :] if want_cache else None
     xBC = _causal_conv(xBC, p["conv_w"], p["conv_b"])
     xs = xBC[..., :di].reshape(b, S, nh, hd)
     Bm = xBC[..., di:di + G * ds].reshape(b, S, G, ds)
@@ -89,8 +95,40 @@ def ssm_forward(p, cfg, x, *, use_kernel: bool = False):
     dt = F.softplus(dt.to(torch.float32) + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     ssd = ssd_chunked_kernel if use_kernel else ssd_chunked
-    y, _ = ssd(xs, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
+    y, ssd_state = ssd(xs, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
     y = y + p["D"][:, None] * xs.to(torch.float32)
     y = y.reshape(b, S, di).to(x.dtype)
     y = rms_norm(y * F.silu(z), p["gnorm"], cfg.norm_eps)
-    return y @ p["out_proj"]
+    out = y @ p["out_proj"]
+    return (out, (tail, ssd_state)) if want_cache else out
+
+
+def ssm_decode(p, cfg, x, conv_state, ssd_state):
+    """One-token recurrent update. x: (B, 1, d); conv_state (B, cw − 1,
+    C); ssd_state (B, nh, hd, ds) f32. -> (out (B, 1, d), new conv_state,
+    new ssd_state), new tensors. The conv window is the cached rows and
+    the new one, promoted as ``jnp.concatenate`` promotes (a bf16 cache
+    with an f32 model gives an f32 state)."""
+    b = x.shape[0]
+    di, nh, hd = cfg.d_inner, cfg.ssm_nheads, cfg.ssm_headdim
+    G, ds = cfg.ssm_ngroups, cfg.ssm_state
+    z, xBC, dt = _split_proj(cfg, x @ p["in_proj"])             # (B, 1, *)
+    window = torch.cat([conv_state, xBC], dim=1)                # (B, cw, C)
+    ct = torch.promote_types(window.dtype, p["conv_w"].dtype)
+    out = (torch.einsum("bwc,wc->bc", window.to(ct), p["conv_w"].to(ct))
+           + p["conv_b"])
+    xBC = F.silu(out)[:, None, :]
+    xs = xBC[..., :di].reshape(b, nh, hd)
+    Bm = xBC[..., di:di + G * ds].reshape(b, G, ds).repeat_interleave(nh // G, 1)
+    Cm = xBC[..., di + G * ds:].reshape(b, G, ds).repeat_interleave(nh // G, 1)
+    dt1 = F.softplus(dt[:, 0].to(torch.float32) + p["dt_bias"])  # (B, nh)
+    A = -torch.exp(p["A_log"])
+    decay = torch.exp(dt1 * A)
+    xdt = xs.to(torch.float32) * dt1[..., None]                 # (B, nh, hd)
+    state = (ssd_state * decay[..., None, None]
+             + torch.einsum("bhp,bhd->bhpd", xdt, Bm.to(torch.float32)))
+    y = torch.einsum("bhpd,bhd->bhp", state, Cm.to(torch.float32))
+    y = y + p["D"][:, None] * xs.to(torch.float32)
+    y = y.reshape(b, 1, di).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["gnorm"], cfg.norm_eps)
+    return y @ p["out_proj"], window[:, 1:, :], state

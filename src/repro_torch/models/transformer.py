@@ -1,8 +1,8 @@
 """Decoder stack (decoder-only, hybrid, enc-dec, VLM): layer plan,
 parameters, forward, head and LM loss.
 
-Port of the training half of ``repro.models.transformer`` (serving's
-prefill and decode come later). The layer pattern of every configuration
+Port of ``repro.models.transformer``: training's forward and loss, and
+serving's ``prefill``, ``init_cache`` and ``decode_step``. The layer pattern of every configuration
 is periodic: ``first_dense`` prefix layers, then ``n_blocks`` blocks of
 ``block_size()`` layers that repeat exactly (``stack_plan`` asserts it).
 A layer is a mixer (``attn`` with an optional window, ``mla`` or ``ssm``),
@@ -29,6 +29,17 @@ under ``kernels="cuda"`` each attention layer's ``gqa_flash`` and each SSM
 layer's ``ssd_scan`` run twice per loss-and-gradient: in the forward and
 in the recomputation. MLA, cross attention and the encoder run the plain
 ``_attend_chunked`` in either mode, as in the JAX package.
+
+Serving caches follow the reference's layout: ``{"prefix": [entry per
+prefix layer], "blocks": (entry per block position, each tensor stacked
+over n_blocks on axis 0), "t": position}``; an entry is ``(k, v)`` (GQA),
+``(c_kv, k_rope)`` (MLA) or ``(conv_state, ssd_state)`` (SSM), with the
+encoder's ``(ck, cv)`` appended in an enc-dec decoder. ``decode_step``
+writes the attention entries in place and copies each new SSM state into
+its entry where the dtype agrees, so on a bf16 model a decode step's
+inputs and outputs are the same tensors (what a CUDA graph of the step
+needs). Serving runs the plain paths whatever the kernel mode, as
+``repro.models.api`` serves without ``use_pallas``.
 """
 from __future__ import annotations
 
@@ -249,40 +260,78 @@ def init_params(model: Transformer, seed: int = 0,
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
-def _apply_mlp(layer: Layer, cfg, h):
-    """-> (y, aux); aux is 0.0 but for an MoE layer."""
+def _apply_mlp(layer: Layer, cfg, h, decode: bool = False):
+    """-> (y, aux); aux is 0.0 but for an MoE layer (``moe_decode`` for
+    one decode token a row)."""
     kind = layer.spec.mlp
     if kind == "moe":
-        return M.moe_forward(layer.mlp, cfg, h)
+        return (M.moe_decode if decode else M.moe_forward)(layer.mlp, cfg, h)
     if kind == "gelu2":
         return L.gelu(h @ layer.mlp["wi"]) @ layer.mlp["wo"], 0.0
     return L.mlp(layer.mlp, h), 0.0
 
 
 def apply_layer(layer: Layer, cfg, x, positions, enc_out=None,
-                use_kernels: bool = False):
-    """One decoder layer over the full sequence -> (x, aux).
-    ``use_kernels`` routes an ``attn`` mixer through ``gqa_flash`` and an
-    ``ssm`` mixer through ``ssd_chunked_kernel``; otherwise, and for MLA,
-    the plain paths run."""
+                use_kernels: bool = False, want_cache: bool = False):
+    """One decoder layer over the full sequence -> (x, aux), or with
+    ``want_cache`` (x, cache entry, aux). ``use_kernels`` routes an
+    ``attn`` mixer through ``gqa_flash`` and an ``ssm`` mixer through
+    ``ssd_chunked_kernel``; otherwise, and for MLA, the plain paths run."""
     spec = layer.spec
     h = L.rms_norm(x, layer.ln1, cfg.norm_eps)
     if spec.mixer == "attn":
         o = L.attn_forward(layer.mixer, cfg, h, positions, window=spec.window,
                            use_rope=cfg.family != "encdec",
-                           use_kernel=use_kernels)
+                           use_kernel=use_kernels, want_cache=want_cache)
     elif spec.mixer == "mla":
-        o = L.mla_forward(layer.mixer, cfg, h, positions)
+        o = L.mla_forward(layer.mixer, cfg, h, positions,
+                          want_cache=want_cache)
     else:
-        o = S.ssm_forward(layer.mixer, cfg, h, use_kernel=use_kernels)
+        o = S.ssm_forward(layer.mixer, cfg, h, use_kernel=use_kernels,
+                          want_cache=want_cache)
+    cache = ()
+    if want_cache:
+        o, cache = o
     x = x + o
     if spec.cross:
         hx = L.rms_norm(x, layer.ln_x, cfg.norm_eps)
         x = x + L.cross_attn_forward(layer.cross, cfg, hx, enc_out)
+        if want_cache:
+            cache = cache + L.cross_kv(layer.cross, cfg, enc_out)
+    aux = 0.0
+    if spec.mlp != "none":
+        y, aux = _apply_mlp(layer, cfg, L.rms_norm(x, layer.ln2, cfg.norm_eps))
+        x = x + y
+    return (x, cache, aux) if want_cache else (x, aux)
+
+
+def apply_layer_decode(layer: Layer, cfg, x, cache, t):
+    """One decode token a row through one layer. x: (B, 1, d); ``cache``
+    this layer's entry; ``t`` an int or a (B,) cursor tensor. -> (x, new
+    entry, aux): attention entries are the given tensors, written in
+    place; SSM states are new tensors."""
+    spec = layer.spec
+    h = L.rms_norm(x, layer.ln1, cfg.norm_eps)
+    if spec.mixer == "attn":
+        o, ck, cv = L.attn_decode(layer.mixer, cfg, h, cache[0], cache[1], t,
+                                  window=spec.window,
+                                  use_rope=cfg.family != "encdec")
+        new = (ck, cv) + tuple(cache[2:])
+    elif spec.mixer == "mla":
+        o, ckv, krope = L.mla_decode(layer.mixer, cfg, h, cache[0], cache[1], t)
+        new = (ckv, krope)
+    else:
+        o, conv, ssd = S.ssm_decode(layer.mixer, cfg, h, cache[0], cache[1])
+        new = (conv, ssd)
+    x = x + o
+    if spec.cross:
+        hx = L.rms_norm(x, layer.ln_x, cfg.norm_eps)
+        x = x + L.cross_attn_decode(layer.cross, cfg, hx, cache[2], cache[3])
     if spec.mlp == "none":
-        return x, 0.0
-    y, aux = _apply_mlp(layer, cfg, L.rms_norm(x, layer.ln2, cfg.norm_eps))
-    return x + y, aux
+        return x, new, 0.0
+    y, aux = _apply_mlp(layer, cfg, L.rms_norm(x, layer.ln2, cfg.norm_eps),
+                        decode=True)
+    return x + y, new, aux
 
 
 def encoder_forward(model: Transformer, frames):
@@ -318,23 +367,46 @@ def _embed(model: Transformer, tokens, frontend_embeds=None):
 
 
 def forward(model: Transformer, tokens, frontend_embeds=None, *, remat=True,
-            use_kernels=False):
-    """tokens (B, S) -> (final hidden (B, S, d), aux summed over layers)."""
+            use_kernels=False, want_cache=False):
+    """tokens (B, S) -> (final hidden (B, S, d), aux summed over layers),
+    or with ``want_cache`` (hidden, (prefix_caches, block_caches), aux) in
+    the reference's stacking (``stack_caches``)."""
     cfg = model.cfg
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
     enc_out = None
     if cfg.family == "encdec":
         enc_out = encoder_forward(model, frontend_embeds)
     x = _embed(model, tokens, frontend_embeds)
-    aux_total = 0.0
+    aux_total, caches = 0.0, []
     for layer in model.layers:
-        if remat and torch.is_grad_enabled():
+        if want_cache:
+            x, cache, aux = apply_layer(layer, cfg, x, positions, enc_out,
+                                        use_kernels, want_cache=True)
+            caches.append(cache)
+        elif remat and torch.is_grad_enabled():
             x, aux = checkpoint(apply_layer, layer, cfg, x, positions, enc_out,
                                 use_kernels, use_reentrant=False)
         else:
             x, aux = apply_layer(layer, cfg, x, positions, enc_out, use_kernels)
         aux_total = aux_total + aux
-    return L.rms_norm(x, model.final_norm, cfg.norm_eps), aux_total
+    h = L.rms_norm(x, model.final_norm, cfg.norm_eps)
+    if want_cache:
+        return h, stack_caches(cfg, caches), aux_total
+    return h, aux_total
+
+
+def stack_caches(cfg, entries: list):
+    """Per-layer cache entries in global order -> ``(prefix, blocks)``:
+    the prefix layers' entries as they are, and for block position p a
+    tuple of tensors stacked over the n_blocks layers ``first_dense + b·P
+    + p`` (axis 0)."""
+    prefix, block, n_blocks = stack_plan(cfg)
+    f, P = len(prefix), len(block)
+    blocks = tuple(
+        tuple(torch.stack([entries[f + b * P + p][e] for b in range(n_blocks)])
+              for e in range(len(entries[f + p])))
+        for p in range(P))
+    return list(entries[:f]), blocks
 
 
 def head_weight(model: Transformer):
@@ -406,3 +478,113 @@ def lm_loss_fn(model: Transformer, batch, *, aux_weight=0.01, remat=True,
     if not torch.is_tensor(aux):
         return loss, loss
     return loss + aux_weight * aux.to(torch.float32), loss
+
+
+# ---------------------------------------------------------------------------
+# serving: cache, prefill, decode
+# ---------------------------------------------------------------------------
+def init_cache(cfg, B: int, S: int, *, device, dtype=torch.bfloat16) -> dict:
+    """Zero caches for every layer, bf16 whatever the model's dtype (the
+    SSD state f32), as the reference's ``init_cache``; ``t`` = 0."""
+    prefix_specs, block_specs, n_blocks = stack_plan(cfg)
+    K, hd = cfg.num_kv_heads, cfg.head_dim
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    def entry(sp: LayerSpec, lead: tuple):
+        if sp.mixer == "attn":
+            e = (zeros(*lead, B, S, K, hd), zeros(*lead, B, S, K, hd))
+        elif sp.mixer == "mla":
+            e = (zeros(*lead, B, S, cfg.kv_lora_rank),
+                 zeros(*lead, B, S, cfg.qk_rope_head_dim))
+        else:
+            e = (zeros(*lead, B, cfg.conv_width - 1, S_conv(cfg)),
+                 zeros(*lead, B, cfg.ssm_nheads, cfg.ssm_headdim,
+                       cfg.ssm_state, dt=torch.float32))
+        if sp.cross:
+            e = e + (zeros(*lead, B, cfg.encoder_seq, K, hd),
+                     zeros(*lead, B, cfg.encoder_seq, K, hd))
+        return e
+
+    return {"prefix": [entry(sp, ()) for sp in prefix_specs],
+            "blocks": tuple(entry(sp, (n_blocks,)) for sp in block_specs),
+            "t": 0}
+
+
+def S_conv(cfg) -> int:
+    """The SSM conv channels (``init_cache``'s ``S`` is the cache length)."""
+    return S.conv_channels(cfg)
+
+
+def _kept(buf, new):
+    """The cache entry after a decode produced ``new`` for ``buf``: ``buf``
+    itself when ``new`` is its memory (written in place) or fits it
+    (copied in); ``new`` when its dtype differs (a bf16 conv state that an
+    f32 model's decode promoted), as the reference's functional cache
+    changes dtype."""
+    if new.dtype != buf.dtype:
+        return new
+    if new.data_ptr() != buf.data_ptr():
+        buf.copy_(new)
+    return buf
+
+
+def _kept_stacked(buf, news: list):
+    """``_kept`` for a block entry stacked over n_blocks: ``news`` holds
+    each block's value."""
+    if any(n.dtype != buf.dtype for n in news):
+        return torch.stack(news)
+    for b, n in enumerate(news):
+        _kept(buf[b], n)
+    return buf
+
+
+@torch.no_grad()
+def decode_step(model: Transformer, cache: dict, tokens):
+    """One decode step. tokens: (B, 1) -> (logits (B, Vp) f32, cache).
+
+    ``cache["t"]`` is an int (one-shot serving: every row at the same
+    position) or a (B,) tensor of per-row cursors (continuous batching,
+    ``repro_torch.serve.slots``); the returned cache holds ``t + 1``.
+    Enc-dec configs take only an int (their learned position embedding
+    and cross attention assume one shared position)."""
+    cfg = model.cfg
+    prefix_specs, block_specs, n_blocks = stack_plan(cfg)
+    t = cache["t"]
+    if L._is_vector(t) and cfg.family == "encdec":
+        raise NotImplementedError(
+            "per-slot decode cursors are not supported for enc-dec configs "
+            "(learned pos_embed lookup + cross-attention assume one shared "
+            "position)")
+    x = F.embedding(tokens.long(), model.embed)
+    if cfg.family == "encdec":
+        t0 = int(t)
+        x = x + model.pos_embed[None, t0:t0 + 1]
+    f, P = len(prefix_specs), len(block_specs)
+    prefix = []
+    for i, ce in enumerate(cache["prefix"]):
+        x, new, _ = apply_layer_decode(model.layers[i], cfg, x, ce, t)
+        prefix.append(tuple(_kept(b, n) for b, n in zip(ce, new)))
+    outs = [[None] * n_blocks for _ in range(P)]
+    for b in range(n_blocks):
+        for p in range(P):
+            ce = tuple(e[b] for e in cache["blocks"][p])
+            x, outs[p][b], _ = apply_layer_decode(
+                model.layers[f + b * P + p], cfg, x, ce, t)
+    blocks = tuple(
+        tuple(_kept_stacked(buf, [outs[p][b][e] for b in range(n_blocks)])
+              for e, buf in enumerate(stacked))
+        for p, stacked in enumerate(cache["blocks"]))
+    x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
+    logits = logits_head(model, x)[:, 0]
+    return logits, {"prefix": prefix, "blocks": blocks, "t": t + 1}
+
+
+@torch.no_grad()
+def prefill(model: Transformer, tokens, frontend_embeds=None):
+    """Full-sequence prefill on the plain paths -> (last-token logits (B,
+    Vp) f32, (prefix_caches, block_caches))."""
+    h, caches, _ = forward(model, tokens, frontend_embeds, remat=False,
+                           use_kernels=False, want_cache=True)
+    return logits_head(model, h[:, -1:])[:, 0], caches

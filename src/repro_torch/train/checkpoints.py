@@ -37,9 +37,10 @@ scratch (``DeviceISGDState.trips``) is not stored.
 addresses, so a restore that handed back new tensors would leave the graph
 training stale buffers (or force a new capture).
 
+``Checkpointer(pointer=True)`` publishes each save to a serving process
+through the atomic ``LATEST`` pointer (``repro_torch.serve.snapshot``).
 Not ported yet: ``Checkpointer(role="validate")`` and its barrier
-(multi-process runs), and ``pointer=True`` / ``publish_pointer`` (the
-serving publish directory); both raise until those land.
+(multi-process runs), which raises until it lands.
 """
 from __future__ import annotations
 
@@ -240,10 +241,17 @@ def restore(path: str, like):
     verified first: a missing key, shape or dtype mismatch raises
     :class:`CheckpointError` naming the key. Keys in the file but not in
     the template are ignored (forward compatibility)."""
-    arrays, _ = _load(path)
+    return restore_extra(path, like)[0]
+
+
+def restore_extra(path: str, like):
+    """``(restore(path, like), load_extra(path))`` from one read of the
+    file."""
+    arrays, meta = _load(path)
     got = _checked(path, arrays, like)
     flat = dict(_leaves(got))
-    return _map(lambda key, leaf: _as_like(flat[key], leaf), like)
+    return (_map(lambda key, leaf: _as_like(flat[key], leaf), like),
+            meta.get("extra", {}))
 
 
 def load_extra(path: str) -> dict:
@@ -463,17 +471,18 @@ class Checkpointer:
     ``recorder`` (a ``repro_torch.obs.MetricsRecorder``) gets a
     ``checkpoint.save`` event and a ``checkpoint/saves`` count a save.
 
+    ``pointer=True`` also publishes a ``LATEST`` pointer file (atomic
+    replace) naming the newest checkpoint after every save: the
+    publish-directory protocol a serving ``SnapshotWatcher`` polls
+    (``repro_torch.serve.snapshot``). Pruning keeps the ``keep`` newest
+    files, so the pointed-to checkpoint always survives.
+
     One process writes: ``role="validate"`` (the other processes of a
-    multi-process run) and ``pointer=True`` (a serving publish directory)
-    are not ported yet and raise."""
+    multi-process run) is not ported yet and raises."""
 
     def __init__(self, directory: str, every: int = 0, keep: int = 3,
                  pointer: bool = False, role: Optional[str] = None,
                  recorder=None, *, layout: Layout):
-        if pointer:
-            raise NotImplementedError(
-                "Checkpointer(pointer=True) publishes for a serving process; "
-                "serving is not ported yet")
         if role not in (None, "write"):
             raise NotImplementedError(
                 f"Checkpointer(role={role!r}): multi-process checkpoint "
@@ -481,6 +490,7 @@ class Checkpointer:
         self.directory = directory
         self.every = every
         self.keep = keep
+        self.pointer = pointer
         self.recorder = recorder
         self.layout = layout
         self._last = 0
@@ -504,6 +514,9 @@ class Checkpointer:
             self.recorder.event("checkpoint.save", step=int(step), path=out,
                                 seconds=time.perf_counter() - t0,
                                 bytes=os.path.getsize(out))
+        if self.pointer:
+            from repro_torch.serve.snapshot import publish_pointer
+            publish_pointer(self.directory, out)
         self._prune()
         return out
 

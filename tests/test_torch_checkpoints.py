@@ -237,11 +237,26 @@ def test_checkpointer_cadence_latest_prune(tmp_path):
     assert ck3.maybe_save(21, params=params, state=state) is not None
 
 
-@pytest.mark.parametrize("kw,match", [(dict(pointer=True), "serving"),
+@pytest.mark.parametrize("kw,match", [(dict(pointer=True), None),
                                       (dict(role="validate"), "multi-process")])
 def test_checkpointer_parts_not_ported_raise(tmp_path, kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        Checkpointer(str(tmp_path), layout=W, **kw)
+    """``role="validate"`` is not ported yet and raises; ``pointer=True``
+    is (serving's publish directory): each save moves ``LATEST`` to the
+    file it wrote, and pruning never removes that file."""
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            Checkpointer(str(tmp_path), layout=W, **kw)
+        return
+    from repro_torch.serve import read_pointer
+    params = [torch.ones(2)]
+    state = isgd_init(momentum(0.9), ISGDConfig(n_batches=4), params)
+    ck = Checkpointer(str(tmp_path), every=2, keep=1, layout=W, **kw)
+    assert read_pointer(str(tmp_path)) is None
+    for step in (2, 4, 6):
+        out = ck.maybe_save(step, params=params, state=state)
+        assert read_pointer(str(tmp_path)) == out and os.path.exists(out)
+    assert ck.steps() == [6]
+    assert sorted(os.listdir(tmp_path)) == ["LATEST", "ckpt_00000006.npz"]
 
 
 def test_checkpointer_records_save_and_restore_events(tmp_path):

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels on the card, against their plain versions, and
-the chunked engine's CUDA graph against the eager per-step engine.
+"""The port's CUDA kernels on the card, against their plain versions, the
+chunked engine's CUDA graph against the eager per-step engine, and the
+serving slot engine's decode graph against its eager decode.
 
 Every test here needs an NVIDIA GPU (``cuda`` marker) and skips without
 one. The file imports neither jax nor the JAX package, and runs on a
@@ -730,3 +731,75 @@ def test_resume_parity_on_card(cuda):
     for r in run_resume_parity(device="cuda"):
         assert r["ok"] and r["max_dev"] == 0.0, r
         assert r["accelerations"] > 0, r
+
+
+# ---------------------------------------------------------------------------
+# serving: the slot engine's decode graph
+# ---------------------------------------------------------------------------
+def _slot_engine(cuda, name, max_seq=64):
+    from repro_torch.configs import get_config
+    from repro_torch.serve import SlotKV
+    cfg = (zoo_config(name, "tiny") if name in ("transformer", "moe", "ssm")
+           else get_config(name).reduced())
+    m = build_model(cfg, kernels="cuda", param_dtype=torch.bfloat16,
+                    device=cuda)
+    m.init(0, max_seq=max_seq)
+    kv = SlotKV(m, max_batch=4, max_seq=max_seq)
+    rng = np.random.RandomState(0)
+    for slot, n in enumerate((5, 9, 7)):
+        kv.admit(slot, rng.randint(0, cfg.vocab_size, size=n).astype(np.int32))
+    return cfg, m, kv
+
+
+def _replay_equals_eager(kv):
+    """One decode from the same slot state, replayed and eager: tokens,
+    logits, cursors and every cache entry equal bit for bit."""
+    saved = [t.clone() for t in kv.tensors()]
+    graph_tok = kv.decode()
+    after = [t.clone() for t in kv.tensors()]
+    for t, s in zip(kv.tensors(), saved):
+        t.copy_(s)
+    eager_tok = kv.decode(eager=True)
+    assert np.array_equal(graph_tok, eager_tok)
+    assert all(torch.equal(a, b) for a, b in zip(kv.tensors(), after))
+    return graph_tok
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["transformer", "moe", "ssm",
+                                  "deepseek_v2_lite_16b"])
+def test_decode_graph_replays_eager_bit_for_bit(cuda, name):
+    """The first decode runs eagerly and captures the step; every later
+    decode replays it, across admits and retires, bit for bit with the
+    eager step on the same state; one capture for the engine's life."""
+    cfg, m, kv = _slot_engine(cuda, name)
+    kv.decode()
+    assert kv.compile_counts()["decode"] == 1
+    for i in range(3):
+        _replay_equals_eager(kv)
+        if i == 0:
+            kv.retire(1)
+            kv.admit(3, np.arange(6, dtype=np.int32))
+    assert kv.compile_counts()["decode"] == 1
+
+
+@pytest.mark.cuda
+def test_swap_params_reaches_the_graph(cuda):
+    """``swap_params`` copies into the live parameters: a replay after the
+    swap equals an eager decode with the new weights, and differs from the
+    replay with the old ones."""
+    cfg, m, kv = _slot_engine(cuda, "transformer")
+    kv.decode()                                     # eager + capture
+    other = build_model(cfg, kernels="cuda", param_dtype=torch.bfloat16,
+                        device=cuda)
+    other.init(7, max_seq=64)
+    saved = [t.clone() for t in kv.tensors()]
+    old = kv.decode()
+    old_logits = kv.logits.clone()
+    for t, s in zip(kv.tensors(), saved):
+        t.copy_(s)
+    kv.swap_params(other.params())
+    new = _replay_equals_eager(kv)
+    assert not torch.equal(kv.logits, old_logits)
+    assert new.shape == old.shape
+    assert kv.compile_counts()["decode"] == 1
