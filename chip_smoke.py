@@ -52,7 +52,20 @@ included; the selection inside the graph, the launches counted on the
 device), and ``resume`` kills a ``loss-prop`` run at a checkpoint (step 6,
 K = 3) and resumes it in a fresh process with K = 4, on the uninterrupted
 run's trajectory and final state bit for bit (each run a child process of
-this script, ``--launch OUT ARGS``). Then serving (``repro_torch.serve``,
+this script, ``--launch OUT SPEC ARGS``). Then data parallelism
+(``repro_torch.distributed``, ``--engine data-parallel``, each run or rank
+a child process through ``--launch`` too): ``dp`` trains the transformer on
+one NCCL rank, per-step and fused (K = 4, the collectives inside the CUDA
+graph and its IF nodes), each bit for bit with the single-device run of
+its engine (losses, ψ̄, limits, decisions, trips) with the same launches,
+its ms/step beside the single-device figure; ``dp2`` trains it on two
+ranks sharing the card over gloo, 4 rows a rank, with the replicas
+checksummed alike after every step, every reduction's gathered rows the
+ranks' own and each ψ the f32 mean of the shards' bit for bit, and each
+rank's ψ within the bf16 ``fused_xent`` tolerance of the single-device
+run; ``dp_parity`` runs
+``python -m repro_torch.distributed.parity`` with two gloo ranks and one
+NCCL rank. Then serving (``repro_torch.serve``,
 which runs the plain paths, as the reference serves without its kernels):
 ``serve`` drives ``paper-transformer`` base through the serve launcher's
 continuous engine (48 mixed-length requests on 16 slots of 1024
@@ -662,8 +675,13 @@ def device_rows(prof) -> list:
 
 def ms_after(log, first: int) -> float:
     """ms per step after the first ``first`` steps, by the log's walls."""
-    n = len(log.wall) - first
-    return (log.wall[-1] - log.wall[first - 1]) / n * 1e3
+    return ms_after_walls(log.wall, first)
+
+
+def ms_after_walls(wall: list, first: int) -> float:
+    """``ms_after`` of a list of walls."""
+    n = len(wall) - first
+    return (wall[-1] - wall[first - 1]) / n * 1e3
 
 
 def report_chunked(name: str, res: dict, ref_log, k: int, **extra) -> dict:
@@ -701,7 +719,7 @@ def phase_chunked(model: str, per_step: dict, k: int = CHUNK):
                          res, per_step["log"], k, config=zoo_base(model).name)
     if model == "transformer" and not sum(out["sub_iters"]):
         raise SystemExit("no Alg. 2 trip ran inside the graph")
-    return out
+    return dict(out, log=res["log"])
 
 
 def zoo_base(model: str):
@@ -1446,26 +1464,83 @@ def ms_per_eval(log, first: int) -> float:
     return (log.wall[-1] - log.wall[first - 1]) / evals * 1e3
 
 
-def launch_child(out: str, argv: list):
-    """``chip_smoke.py --launch OUT ARGV...``: the launcher in a process of
-    its own (``repro_torch.launch.train.main(ARGV)``); its log goes to OUT
-    as JSON (exact: JSON round-trips every float)."""
+def child_cmd(out: str, spec: dict, argv: list) -> list:
+    return [sys.executable, os.path.abspath(__file__), "--launch", out,
+            json.dumps(spec)] + argv
+
+
+def launch_child(out: str, spec: dict, argv: list):
+    """``chip_smoke.py --launch OUT SPEC ARGV...``: the launcher in a
+    process of its own (``repro_torch.launch.train``, ARGV its arguments);
+    its log, launches, peak memory and reduction buffers go to OUT as JSON
+    (exact: JSON round-trips every float). SPEC, a JSON object, asks for
+    more: ``counted`` counts the kernels' launches on the device
+    (``device_counted``, a fused run); ``replicas`` checksums every rank's
+    replica after each step (``ReplicaCheck``, kept out of the walls and
+    the peak); ``probe`` records every reduction's loss slots
+    (``probe_gathers``, a per-step run)."""
     torch.backends.cuda.matmul.allow_tf32 = False   # as the parent runs
     torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.fused_xent import fused_xent
     from repro_torch.launch import train as launcher
-    res = launcher.main(argv)
+    from repro_torch.obs.console import process_index
+    wrappers = {"fused_xent": fused_xent, "flash_attention": flash_attention}
+    for w in wrappers.values():
+        w.launches = 0
+    args = launcher.parse_args(argv)
+    check = ReplicaCheck() if spec.get("replicas") else None
+    gathers = probe_gathers() if spec.get("probe") else None
+    device = None
+    if spec.get("counted"):
+        res, device = device_counted(
+            lambda p: launcher.run(args, profiler=p, on_step=check))
+    else:
+        res = launcher.run(args, on_step=check)
+    peaks = [res["peak_bytes"]] + ([] if check is None else check.peaks)
+    log = res["log"]
     with open(out, "w") as fh:
-        json.dump({"start": res["start"], "steps": res["steps"],
+        json.dump({"rank": process_index(), "ranks": res["ranks"],
+                   "start": res["start"], "steps": res["steps"],
                    "seconds": res["seconds"],
                    "capture_seconds": res["capture_seconds"],
-                   **sequences(res)}, fh)
+                   **sequences(res), **{k: getattr(log, k) for k in DP_KEYS},
+                   "wall": log.wall,
+                   "launches": {k: w.launches for k, w in wrappers.items()},
+                   "device_launches": device,
+                   "peak_bytes": max((p for p in peaks if p is not None),
+                                     default=None),
+                   "reduce_bytes": res["reduce_bytes"],
+                   "params": res["params"],
+                   "replicas": None if check is None else check.rows,
+                   "gathers": gathers}, fh)
 
 
-def run_child(argv: list, out: str) -> dict:
-    subprocess.run([sys.executable, os.path.abspath(__file__), "--launch",
-                    out] + argv, check=True)
-    with open(out) as fh:
-        return json.load(fh)
+def run_children(argvs: list, outs: list, specs: list) -> list:
+    """``launch_child`` processes started together (the ranks of one run),
+    each joined with a timeout; -> their JSON results."""
+    procs = [subprocess.Popen(child_cmd(o, sp, a))
+             for a, o, sp in zip(argvs, outs, specs)]
+    try:
+        for p in procs:
+            p.wait(timeout=900)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [p.returncode for p in procs if p.returncode != 0]
+    if bad:
+        raise SystemExit(f"launcher children exited {bad}")
+    out = []
+    for o in outs:
+        with open(o) as fh:
+            out.append(json.load(fh))
+    return out
+
+
+def run_child(argv: list, out: str, spec: dict = None) -> dict:
+    return run_children([argv], [out], [spec or {}])[0]
 
 
 def phase_resume(ref: dict):
@@ -1542,6 +1617,306 @@ def phase_resume(ref: dict):
     if not out["branch_fired_after_kill"]:
         raise SystemExit("resume: the accelerate branch never fired after "
                          "the kill")
+
+
+# ---------------------------------------------------------------------------
+# data parallelism (repro_torch.distributed): the transformer path over a
+# process group; no kernel of its own, the same two kernels on every rank
+# ---------------------------------------------------------------------------
+DP2_STEPS = 6                              # the two gloo ranks' steps
+DP_KERNELS = ("fused_xent", "flash_attention")
+DP_KEYS = ("losses", "psi_bar", "limits", "accelerated", "sub_iters")
+INT_OF_SIZE = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+               8: torch.int64}
+
+
+def replica_checksum(tensors) -> torch.Tensor:
+    """A 0-d int64 checksum of the bits of ``tensors`` on the device: each
+    tensor's elements as integers, weighted by position, summed (int64
+    arithmetic wraps), folded in order. Equal bits give equal sums."""
+    acc = None
+    for t in tensors:
+        v = t.detach().contiguous().view(-1)
+        v = v.view(INT_OF_SIZE[v.element_size()]).to(torch.int64)
+        w = torch.arange(v.numel(), device=v.device) % 8191 + 1
+        part = (v * w).sum() + v.sum()
+        acc = part if acc is None else acc * 1000003 + part
+    return acc
+
+
+def replica_agreement(carry) -> dict:
+    """Every rank's checksum of its params, optimizer state, ψ queue and
+    counters after a step, gathered in rank order: {"equal", "sums"}."""
+    import torch.distributed as dist
+    from repro_torch.core.reduce import tree_leaves
+    state, params = carry[0], carry[1]
+    dev = params[0].device
+    counters = torch.tensor([int(state.iter), int(state.accel_count),
+                             int(state.sub_iters)], device=dev)
+    mine = replica_checksum(list(params) + tree_leaves(state.base)
+                            + tree_leaves(tuple(state.queue)) + [counters])
+    sums = [torch.zeros(1, dtype=torch.int64, device=dev)
+            for _ in range(dist.get_world_size())]
+    dist.all_gather(sums, mine.reshape(1))
+    sums = [int(x) for x in sums]
+    return {"equal": len(set(sums)) == 1, "sums": sums}
+
+
+class ReplicaCheck:
+    """``on_step`` of a data-parallel run: after each step every rank's
+    replica checksum, gathered (``replica_agreement``), goes to ``rows``
+    with the seconds it took. Its time and memory stay out of the engine's
+    figures: the device is synchronised first, the peak so far is kept in
+    ``peaks``, and the peak counter is reset after the checksum."""
+
+    def __init__(self):
+        self.rows, self.peaks = [], []
+
+    def __call__(self, j: int, carry):
+        dev = carry[1][0].device
+        cuda = dev.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(dev)
+            self.peaks.append(torch.cuda.max_memory_allocated(dev))
+        t0 = time.perf_counter()
+        row = replica_agreement(carry)
+        row["seconds"] = time.perf_counter() - t0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        self.rows.append(row)
+
+
+def probe_gathers() -> list:
+    """Record every gather of a reduction's bucket (``AxisReduce.gather``
+    into a (world, n) buffer, n > 2), in order: this rank's ψ and aux (the
+    bucket's first two slots, ``wrap_loss_and_grad``'s layout) and the
+    gathered rows' ({"local": [ψ, aux], "gathered": [[ψ, aux] of rank 0,
+    …]}). The first is ``init_fn``'s priming gather. Each record reads the
+    host, so a captured gather (the fused engine) cannot be probed."""
+    from repro_torch.core.reduce import AxisReduce
+    rows, gather = [], AxisReduce.gather
+
+    def probed(self, x, out):
+        gather(self, x, out)
+        if out.dim() == 2 and out.shape[1] > 2:
+            rows.append({"local": x[:2].tolist(),
+                         "gathered": out[:, :2].tolist()})
+        return out
+
+    AxisReduce.gather = probed
+    return rows
+
+
+def f32_shard_mean(xs: list) -> float:
+    """The rank-order mean of f32 values in f32, ``((x_0 + x_1) + …) / n``:
+    what ``AxisReduce`` must compute, worked out here with numpy."""
+    acc = np.float32(xs[0])
+    for x in xs[1:]:
+        acc = np.float32(acc + np.float32(x))
+    return float(np.float32(acc / np.float32(len(xs))))
+
+
+def shard_reduction(ranks: list) -> dict:
+    """The two-rank run's reductions against their shards (``probe``): at
+    every evaluation every rank's gathered rows must be the ranks' own
+    bucket slots in rank order (so no shard is dropped or handed twice),
+    and each step's logged ψ the rank-order f32 mean of the shards' ψ bit
+    for bit. The shards' ψ must differ, or the check could not tell."""
+    evals = [g["gathers"][1:] for g in ranks]        # past the priming
+    n, sub = len(ranks), ranks[0]["sub_iters"]
+    want = ranks[0]["steps"] + sum(sub)
+    out = dict(evaluations=[len(e) for e in evals], expected=want)
+    if any(len(e) != want for e in evals):
+        return dict(out, ok=False)
+    first = np.cumsum([0] + [1 + s for s in sub[:-1]]).tolist()
+    rows_ok = all(evals[r][i]["gathered"]
+                  == [evals[q][i]["local"] for q in range(n)]
+                  for r in range(n) for i in range(want))
+    shard_psi = [[evals[r][i]["local"][0] for i in first] for r in range(n)]
+    mean_ok = all(g["losses"][j] == f32_shard_mean(
+        [row[0] for row in evals[r][i]["gathered"]])
+        for r, g in enumerate(ranks) for j, i in enumerate(first))
+    distinct = all(len(set(col)) == n for col in zip(*shard_psi))
+    return dict(out, rows_in_rank_order=rows_ok, psi_is_shard_mean=mean_ok,
+                shards_distinct=distinct, shard_psi=shard_psi,
+                ok=rows_ok and mean_ok and distinct)
+
+
+def phase_dp(per_step: dict, chunked: dict):
+    """One NCCL rank (``--engine data-parallel``, no process arguments: a
+    one-rank group) on ``paper-transformer`` base: per-step for 12 steps
+    and fused at K = 4, each a child process. The one-rank gather and mean
+    must leave every value as it was, so each run must equal the
+    single-device run of the same engine (``train``, ``chunked``) bit for
+    bit: every loss, ψ̄, limit, accelerate decision and sub_iters; and it
+    must launch the same kernels as often (host counts per-step, device
+    counts fused: ``fused_xent`` and ``flash_attention`` per evaluation
+    times steps plus trips). ms/step is printed beside the single-device
+    figures, with the bytes the reduction adds (the f32 bucket and the
+    gathered (1, n) buffer)."""
+    import tempfile
+    t0 = time.perf_counter()
+    per_eval = launches_per_eval(zoo_base("transformer"))
+    base = train_args("transformer") + ["--engine", "data-parallel"]
+    with tempfile.TemporaryDirectory(prefix="dp_", dir=ROOT) as d:
+        runs = {"per-step": run_child(base, os.path.join(d, "ps.json")),
+                "fused": run_child(base + ["--chunk-steps", str(CHUNK)],
+                                   os.path.join(d, "fused.json"),
+                                   {"counted": True})}
+    refs = {"per-step": per_step["log"], "fused": chunked["log"]}
+    for engine, got in runs.items():
+        ref = refs[engine]
+        first = 1 if engine == "per-step" else CHUNK
+        evals = got["steps"] + sum(got["sub_iters"])
+        expect = {k: per_eval[k] * evals for k in DP_KERNELS}
+        launches = (got["launches"] if engine == "per-step"
+                    else {k: got["device_launches"][k] for k in DP_KERNELS})
+        same = {k: got[k] == getattr(ref, k) for k in DP_KEYS}
+        single = (per_step["launches"] if engine == "per-step" else expect)
+        out = dict(config=zoo_base("transformer").name, engine=engine,
+                   ranks=got["ranks"], backend="nccl", steps=got["steps"],
+                   bit_exact=all(same.values()), equal=same,
+                   losses=got["losses"], accelerated=got["accelerated"],
+                   sub_iters=got["sub_iters"], launches=launches,
+                   expected_launches=expect,
+                   single_device_launches={k: single[k] for k in DP_KERNELS},
+                   ms_per_step=ms_after_walls(got["wall"], first),
+                   single_device_ms_per_step=ms_after(ref, first),
+                   bucket_bytes=got["reduce_bytes"]["bucket"],
+                   gathered_bytes=got["reduce_bytes"]["gathered"],
+                   added_bytes=sum(got["reduce_bytes"].values()),
+                   peak_mem_gib=got["peak_bytes"] / 2**30,
+                   capture_seconds=got["capture_seconds"])
+        emit("dp", **out)
+        if got["ranks"] != 1:
+            raise SystemExit(f"dp: {got['ranks']} ranks, not 1")
+        if not out["bit_exact"]:
+            raise SystemExit(f"dp {engine}: the one-rank run differs from "
+                             f"the single-device run: {same}")
+        if launches != expect or launches != out["single_device_launches"]:
+            raise SystemExit(f"dp {engine}: launches {launches}, expected "
+                             f"{expect}")
+    emit("dp_seconds", seconds=time.perf_counter() - t0)
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_dp2(per_step: dict):
+    """Two ranks sharing the card over gloo (``--dist-backend gloo``: NCCL
+    refuses two ranks on one device), per-step, ``paper-transformer`` base
+    at global batch 8 (4 a rank) for DP2_STEPS steps: a real two-shard
+    reduction, each 1.28 GB f32 bucket staged through the host. After every
+    step the ranks' params, optimizer state, queue and counters must
+    checksum alike (gathered across the ranks). Every reduction is held
+    against its shards (``shard_reduction``): the gathered rows are the
+    ranks' own in rank order, and each step's ψ is the f32 mean of the two
+    shards' ψ bit for bit. Each rank's ψ must also stay within the bf16
+    ``fused_xent`` tolerance (``numerics``) of the single-device run's on
+    the same global batches (printed beside the gap a one-shard ψ shows),
+    and its accelerate decisions equal wherever that run's ψ is clear of
+    its limit by more than the tolerance; both ranks launch the same
+    kernels as often. Each rank's peak memory and s/step are printed
+    without the checksum's memory and time. A correctness check, not a
+    speed figure."""
+    import tempfile
+
+    from repro_torch.kernels.numerics import TOLERANCES
+    t0 = time.perf_counter()
+    rtol, atol = TOLERANCES["fused_xent"]["bfloat16"]
+    argv = train_args("transformer", DP2_STEPS) + [
+        "--engine", "data-parallel", "--dist-backend", "gloo",
+        "--coordinator", f"127.0.0.1:{free_port()}", "--num-processes", "2"]
+    with tempfile.TemporaryDirectory(prefix="dp2_", dir=ROOT) as d:
+        ranks = run_children(
+            [argv + ["--process-id", str(r)] for r in range(2)],
+            [os.path.join(d, f"rank{r}.json") for r in range(2)],
+            [{"replicas": True, "probe": True}] * 2)
+    ref = per_step["log"]
+    s_psi, s_lim = ref.losses[:DP2_STEPS], ref.limits[:DP2_STEPS]
+    tol = [atol + rtol * abs(x) for x in s_psi]
+    clear = [not math.isfinite(lim) or abs(p - lim) > t
+             for p, lim, t in zip(s_psi, s_lim, tol)]
+    per_eval = launches_per_eval(zoo_base("transformer"))
+    reduction = shard_reduction(ranks)
+    if "shard_psi" in reduction:           # ψ of one shard against s_psi
+        reduction["one_shard_gap"] = [
+            max(abs(a - b) for a, b in zip(row, s_psi))
+            for row in reduction["shard_psi"]]
+    out = dict(config=zoo_base("transformer").name, ranks=2, backend="gloo",
+               steps=DP2_STEPS, global_batch=8, per_rank_batch=4,
+               single_device_losses=s_psi, tolerance=[rtol, atol],
+               max_tolerance=max(tol), reduction=reduction)
+    ok = reduction["ok"]
+    for g in ranks:
+        dev = [abs(a - b) for a, b in zip(g["losses"], s_psi)]
+        evals = g["steps"] + sum(g["sub_iters"])
+        check_s = [r["seconds"] for r in g["replicas"]]
+        wall = g["wall"]
+        rank = dict(
+            losses=g["losses"], accelerated=g["accelerated"],
+            sub_iters=g["sub_iters"], max_abs_psi_dev=max(dev),
+            psi_within=all(x <= t for x, t in zip(dev, tol)),
+            decisions_equal_where_clear=all(
+                a == b for a, b, c in zip(g["accelerated"],
+                                          ref.accelerated[:DP2_STEPS], clear)
+                if c),
+            replicas_equal_every_step=(len(g["replicas"]) == DP2_STEPS
+                                       and all(r["equal"]
+                                               for r in g["replicas"])),
+            launches=g["launches"],
+            expected_launches={k: per_eval[k] * evals for k in DP_KERNELS},
+            peak_mem_gib=g["peak_bytes"] / 2**30,
+            # the steps after the first, less the checksums run between
+            s_per_step=(wall[-1] - wall[0] - sum(check_s[:-1]))
+            / (len(wall) - 1),
+            checksum_s_per_step=sum(check_s) / len(check_s),
+            reduce_bytes=g["reduce_bytes"])
+        out[f"rank{g['rank']}"] = rank
+        ok &= (rank["psi_within"] and rank["decisions_equal_where_clear"]
+               and rank["replicas_equal_every_step"]
+               and rank["launches"] == rank["expected_launches"])
+    same_ranks = ([r["sums"] for r in ranks[0]["replicas"]]
+                  == [r["sums"] for r in ranks[1]["replicas"]]
+                  and all(ranks[0][k] == ranks[1][k] for k in DP_KEYS)
+                  and ranks[0]["launches"] == ranks[1]["launches"])
+    out.update(ranks_identical=same_ranks, clear_of_limit=clear,
+               seconds=time.perf_counter() - t0)
+    emit("dp2", **out)
+    if not (ok and same_ranks):
+        raise SystemExit("dp2: the two gloo ranks failed a check (above)")
+
+
+def phase_dp_parity():
+    """``python -m repro_torch.distributed.parity`` on the card: two ranks
+    over gloo and one NCCL rank, each within the reference's 1e-5, with
+    accelerations and no decision mismatch (its exit code 0)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    for procs, backend in ((2, "gloo"), (1, "nccl")):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m",
+                            "repro_torch.distributed.parity", "--procs",
+                            str(procs), "--device", "cuda", "--backend",
+                            backend], cwd=ROOT, env=env, capture_output=True,
+                           text=True, timeout=600)
+        line = next((l for l in r.stdout.splitlines()
+                     if l.startswith("parity devices=")), "")
+        fields = dict(kv.split("=", 1) for kv in line.split()
+                      if "=" in kv)
+        emit("dp_parity", procs=procs, backend=backend, rc=r.returncode,
+             line=line, seconds=time.perf_counter() - t0,
+             **{k: fields.get(k) for k in ("accelerations", "accel_mismatch",
+                                           "max_param", "max_psi_bar",
+                                           "max_limit",
+                                           "replicas_identical")})
+        if r.returncode != 0 or not line.endswith("-> OK"):
+            raise SystemExit(f"dp_parity --procs {procs} --backend "
+                             f"{backend}: rc {r.returncode}\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
 
 
 # ---------------------------------------------------------------------------
@@ -2074,10 +2449,10 @@ def phase_train_and_serve():
         while len(sched.completions) < 16:     # generation 0 first
             feed_and_step()
         child = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--launch",
-             os.path.join(d, "train.json")]
-            + train_args("transformer", PUBLISH_STEPS)
-            + ["--publish-dir", pub, "--publish-every", str(PUBLISH_EVERY)])
+            child_cmd(os.path.join(d, "train.json"), {},
+                      train_args("transformer", PUBLISH_STEPS)
+                      + ["--publish-dir", pub, "--publish-every",
+                         str(PUBLISH_EVERY)]))
         try:
             deadline = time.perf_counter() + 600
             while child.poll() is None and time.perf_counter() < deadline:
@@ -2144,7 +2519,8 @@ def main():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
     if sys.argv[1:2] == ["--launch"]:
-        return launch_child(sys.argv[2], sys.argv[3:])
+        return launch_child(sys.argv[2], json.loads(sys.argv[3]),
+                            sys.argv[4:])
     if sys.argv[1:2] == ["--profile-chunked"]:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -2175,6 +2551,9 @@ def main():
     phase_profile_dir()
     phase_eval_cnn()
     phase_resume(phase_sched(train["transformer"], chunked["transformer"]))
+    phase_dp(train["transformer"], chunked["transformer"])
+    phase_dp2(train["transformer"])
+    phase_dp_parity()
     serve_phases()
     kernels = []
     for name, path, replaces in (

@@ -1,7 +1,6 @@
 """Inconsistent Stochastic Gradient Descent (the paper's contribution).
 
-Port of ``repro.core.isgd`` for one device (the JAX package's ``LOCAL``
-reduction is the identity, so it has no counterpart here). Each iteration:
+Port of ``repro.core.isgd``. Each iteration:
 
   1. runs the normal base update (Alg.1 line 21), BEFORE the push;
   2. pushes the batch loss into the epoch-window queue and recomputes the
@@ -25,6 +24,11 @@ i running where ``live_i = live_{i-1} & (ψ_{i-1} > limit)`` with
 while the chunked engine builds its CUDA graph, an IF node of the graph,
 elsewhere a host ``if``, so the CPU runs the same logic.
 
+Every ``loss_and_grad`` evaluation, the base step's and each Alg. 2
+trip's, goes through ``reduce_ctx.wrap_loss_and_grad`` (``core.reduce``):
+``LOCAL`` on one device, ``AxisReduce`` under data parallelism, so ψ, the
+predicate and every trip are the same on every rank.
+
 Both forms mark the queue push and limit (``obs/psi_push``) and the
 accelerate branch (``obs/accelerate``) with profiler spans, as the JAX
 package's named scopes do; a span is host-only and adds nothing to a
@@ -38,6 +42,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.core import control
+from repro_torch.core.reduce import LOCAL, ReduceCtx
 from repro_torch.obs.timing import named_scope
 from repro_torch.optim.base import UpdateRule
 
@@ -131,12 +136,15 @@ def _push(queue, loss, slot):
 
 
 def isgd_step(rule: UpdateRule, cfg: ISGDConfig, loss_and_grad: Callable,
-              state: ISGDState, params, batch, lr, slot=None):
+              state: ISGDState, params, batch, lr, slot=None,
+              reduce_ctx: ReduceCtx = LOCAL):
     """One inconsistent-training iteration (Alg.1 body).
 
-    ``loss_and_grad(params, batch) -> ((loss, aux), grads)``. ``slot``:
-    ``None`` = FIFO push; a batch index = per-batch table write
-    (``control.push_at``). Returns (state, params, metrics)."""
+    ``loss_and_grad(params, batch) -> ((loss, aux), grads)``, each
+    evaluation reduced by ``reduce_ctx``. ``slot``: ``None`` = FIFO push; a
+    batch index = per-batch table write (``control.push_at``). Returns
+    (state, params, metrics)."""
+    loss_and_grad = reduce_ctx.wrap_loss_and_grad(loss_and_grad)
     (loss, aux), grads = loss_and_grad(params, batch)
 
     # line 21: vanilla base update
@@ -170,9 +178,10 @@ def isgd_step(rule: UpdateRule, cfg: ISGDConfig, loss_and_grad: Callable,
 
 
 def consistent_step(rule: UpdateRule, loss_and_grad: Callable, state, params,
-                    batch, lr, slot=None):
+                    batch, lr, slot=None, reduce_ctx: ReduceCtx = LOCAL):
     """Baseline SGD/Momentum/Nesterov step (no inconsistent training) with
     the same metrics surface (paper §5.2)."""
+    loss_and_grad = reduce_ctx.wrap_loss_and_grad(loss_and_grad)
     (loss, aux), grads = loss_and_grad(params, batch)
     base_state = rule.apply(state.base, params, grads, lr)
     queue = _push(state.queue, loss, slot)
@@ -244,7 +253,7 @@ def isgd_device_init(rule: UpdateRule, cfg: ISGDConfig, params, *,
 
 def isgd_step_device(rule: UpdateRule, cfg: ISGDConfig,
                      loss_and_grad: Callable, state: DeviceISGDState, params,
-                     batch, lr, slot=None):
+                     batch, lr, slot=None, reduce_ctx: ReduceCtx = LOCAL):
     """``isgd_step`` with the accelerate branch and Alg. 2 on the device:
     the same arithmetic in the same order, so its trajectory is the per-step
     engine's bit for bit. Updates ``state`` and ``params`` in place and
@@ -252,7 +261,8 @@ def isgd_step_device(rule: UpdateRule, cfg: ISGDConfig,
     read ``state.trips``, the params and ``batch`` only, so ``batch`` must
     outlive the step where it is captured. ``slot`` as in ``isgd_step``:
     a 0-d int tensor on the device, which the push takes without a host
-    read, so a capture holds it."""
+    read, so a capture holds it. ``reduce_ctx`` as in ``isgd_step``."""
+    loss_and_grad = reduce_ctx.wrap_loss_and_grad(loss_and_grad)
     (loss, aux), grads = loss_and_grad(params, batch)
     assign_(state.base, rule.apply(state.base, params, grads, lr))
     del grads
@@ -303,8 +313,9 @@ def isgd_step_device(rule: UpdateRule, cfg: ISGDConfig,
 
 def consistent_step_device(rule: UpdateRule, loss_and_grad: Callable,
                            state: DeviceISGDState, params, batch, lr,
-                           slot=None):
+                           slot=None, reduce_ctx: ReduceCtx = LOCAL):
     """``consistent_step`` in the device form (in place, tensor metrics)."""
+    loss_and_grad = reduce_ctx.wrap_loss_and_grad(loss_and_grad)
     (loss, aux), grads = loss_and_grad(params, batch)
     assign_(state.base, rule.apply(state.base, params, grads, lr))
     del grads

@@ -1,0 +1,53 @@
+"""Distributed ISGD (paper §6): the data-parallel engine over
+``torch.distributed`` (``make_hybrid_step`` on a pure-data mesh;
+``make_data_parallel_step`` is its alias), the reduction contexts, the
+data-parallel prefetcher and the N-rank parity check (``parity``).
+
+Port of the pure data-parallel half of ``repro.distributed``. Not ported
+yet, each waiting for its slice: the hybrid tensor-parallel strategy and
+``hybrid_parity``, the asynchronous parameter server ``async_ps``, and
+``multihost_parity``.
+
+The reduction contexts live in ``repro_torch.core.reduce`` (so ``core``
+never imports this package) and are re-exported here. Exports resolve
+lazily, as in the reference.
+"""
+from __future__ import annotations
+
+import importlib
+
+_EXPORTS = {
+    "ReduceCtx": "repro_torch.core.reduce",
+    "LocalReduce": "repro_torch.core.reduce",
+    "AxisReduce": "repro_torch.core.reduce",
+    "StalenessReduce": "repro_torch.core.reduce",
+    "staleness_reduce_from_spec": "repro_torch.core.reduce",
+    "LOCAL": "repro_torch.core.reduce",
+    "make_hybrid_step": "repro_torch.distributed.data_parallel",
+    "make_chunked_hybrid_step": "repro_torch.distributed.data_parallel",
+    "make_data_parallel_step": "repro_torch.distributed.data_parallel",
+    "make_chunked_data_parallel_step": "repro_torch.distributed.data_parallel",
+    "batch_sharding": "repro_torch.distributed.data_parallel",
+    "replicated": "repro_torch.distributed.data_parallel",
+    "replicate_to_mesh": "repro_torch.distributed.data_parallel",
+    "MeshStrategy": "repro_torch.distributed.data_parallel",
+    "mesh_strategy": "repro_torch.distributed.data_parallel",
+    "data_axis_size": "repro_torch.distributed.data_parallel",
+    "tensor_axes": "repro_torch.distributed.data_parallel",
+    "PrefetchSampler": "repro_torch.distributed.prefetch",
+    "prefetched": "repro_torch.distributed.prefetch",
+    "run_parity": "repro_torch.distributed.parity",
+}
+
+__all__ = list(_EXPORTS)
+
+
+def __getattr__(name: str):
+    mod = _EXPORTS.get(name)
+    if mod is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(mod), name)
+
+
+def __dir__():
+    return sorted(_EXPORTS)

@@ -39,6 +39,22 @@ run's trajectory bit for bit (a resumed fused run may start mid-chunk).
 N steps into D with the atomic ``LATEST`` pointer that a serving process
 polls (``python -m repro_torch.launch.serve --watch --publish-dir D``).
 
+``--engine data-parallel`` (alias ``--data-parallel``; ``--engine
+hybrid``/``pjit`` with ``--model-parallel 1`` is the same engine) trains
+through the data-parallel engine (``repro_torch.distributed``): params
+replicated (rank 0's, broadcast), each rank on its rows of every batch, ψ
+and the gradients gathered and averaged in rank order every evaluation.
+Without process arguments it is one rank (a one-rank group: NCCL on the
+card, gloo on the CPU); ``--coordinator host:port --num-processes N
+--process-id r`` (or ``torchrun``'s environment) makes N ranks, and
+``--dist-backend gloo`` lets them share one card. ``--chunk-steps``,
+``--device-ring``, ``--schedule``, ``--checkpoint-*`` (rank 0 writes, the
+others validate their replicas) and ``--obs-dir`` compose with it. A
+``--batch`` the ranks do not divide exits 1; ``--model-parallel > 1`` (the
+hybrid tensor-parallel slice) and ``--engine async-ps`` (the async-PS
+slice) exit naming their slice. Only rank 0 prints. Without ``--engine``
+the run is the single-device engines' as above.
+
 ``--obs-dir D`` writes the run's telemetry (``repro_torch.obs``) to
 ``D/metrics.p0.jsonl`` and ``D/summary.json``: the SPC control chart, step
 and dispatch counters and the ``spc.final`` snapshot, reconciled bit for bit
@@ -67,6 +83,10 @@ the card the kernels are built before the clock starts.
       [--chunk-steps 4] [--obs-dir /tmp/obs] [--profile-dir /tmp/prof] \\
       [--schedule loss-prop] [--checkpoint-dir /tmp/ck --checkpoint-every 4 \\
       [--resume]]
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --model transformer --tier tiny --steps 6 --seq 64 --n-seqs 32 \\
+      --engine data-parallel --coordinator 127.0.0.1:29511 \\
+      --num-processes 2 --process-id 0      # and --process-id 1
 """
 from __future__ import annotations
 
@@ -82,7 +102,14 @@ from repro_torch.core import ISGDConfig, constant_lr
 from repro_torch.data import (DeviceRing, FCPRSampler, make_lm_tokens,
                               ring_or_prefetch)
 from repro_torch.device import resolve_device
+from repro_torch.distributed.data_parallel import (make_chunked_hybrid_step,
+                                                   make_hybrid_step,
+                                                   replicate_to_mesh)
+from repro_torch.distributed.prefetch import prefetched
 from repro_torch.kernels import KERNEL_CHOICES, build
+from repro_torch.launch import env as ENV
+from repro_torch.launch.env import p0print
+from repro_torch.launch.mesh import HYBRID_TP, make_data_mesh
 from repro_torch.models import build_model
 from repro_torch.models.api import frontend_embeds as api_frontend_embeds
 from repro_torch.obs import (ConsoleSink, JsonlSink, MetricsRecorder,
@@ -180,7 +207,54 @@ def parse_args(argv=None):
                     help="write a torch.profiler trace of the timed steps "
                          "into this directory (spans obs/chunk_scan, "
                          "obs/psi_push, obs/accelerate)")
+    ap.add_argument("--engine", default=None,
+                    choices=["hybrid", "pjit", "data-parallel", "async-ps"],
+                    help="data-parallel: the data-parallel engine over the "
+                         "process group (hybrid/pjit with --model-parallel "
+                         "1 are the same engine; async-ps is not ported "
+                         "yet); omit for the single-device engines")
+    ap.add_argument("--data-parallel", action="store_true",
+                    help="alias for --engine data-parallel")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="hybrid engine: ranks on the tensor-parallel axis "
+                         "(only 1 until the hybrid tensor-parallel slice)")
+    ENV.add_process_args(ap)
     return ap.parse_args(argv)
+
+
+def engine_of(args):
+    """The data-parallel engine's name, or None for the single-device
+    engines; raises ValueError for the engines not ported yet.
+    ``--coordinator`` or ``--num-processes`` alone implies the
+    data-parallel engine."""
+    engine = args.engine or ("data-parallel" if args.data_parallel else None)
+    if engine is None and (args.coordinator
+                           or args.num_processes not in (None, 1)):
+        engine = "data-parallel"
+    if engine == "async-ps":
+        raise ValueError("--engine async-ps: the asynchronous parameter-"
+                         "server engine is not ported yet (the async-PS "
+                         "slice, ROADMAP A15)")
+    if engine is None:
+        if args.model_parallel != 1:
+            raise ValueError("--model-parallel needs --engine hybrid")
+        return None
+    if args.model_parallel != 1:
+        raise ValueError(f"--model-parallel {args.model_parallel}: "
+                         f"{HYBRID_TP}")
+    return "data-parallel" if engine == "data-parallel" else "hybrid"
+
+
+def data_mesh(args, dev):
+    """The 1-D data mesh over the process group; exits 1 when the ranks do
+    not divide ``--batch``."""
+    mesh = make_data_mesh(dev.type, args.dist_backend)
+    n = mesh.size()
+    if args.batch % n:
+        raise SystemExit(f"--batch {args.batch} must be a multiple of the "
+                         f"{n} data-parallel ranks (it is split across "
+                         f"them)")
+    return mesh
 
 
 def resolve_config(args):
@@ -289,14 +363,14 @@ def _maybe_resume(args, ckpt, *, params_like, state_like, sched_like=None):
         return None
     latest = ckpt.latest()
     if latest is None:
-        print(f"resume: no checkpoint under {ckpt.directory!r}; "
-              f"starting fresh")
+        p0print(f"resume: no checkpoint under {ckpt.directory!r}; "
+                f"starting fresh")
         return None
     ck = restore_engine(latest, params_like=params_like,
                         state_like=state_like, sched_like=sched_like,
                         layout=ckpt.layout, recorder=ckpt.recorder)
     ckpt.mark(ck.step)
-    print(f"resume: restored {latest!r} at step {ck.step}")
+    p0print(f"resume: restored {latest!r} at step {ck.step}")
     return ck
 
 
@@ -318,7 +392,21 @@ def _make_observer(args, cfg, icfg, engine: str, table: bool = False):
                          table=table, examples_per_step=args.batch)
 
 
-def run(args, *, fused=None, profiler=None) -> dict:
+def run(args, *, fused=None, profiler=None, on_step=None) -> dict:
+    """Train as ``args`` say (``_run``); a data-parallel run makes its
+    process group first (``--coordinator`` …, else a one-rank group that
+    lasts for the run)."""
+    if engine_of(args) is None:
+        return _run(args, None, fused=fused, profiler=profiler,
+                    on_step=on_step)
+    dev = resolve_device(args.device)
+    ENV.initialize_from_args(args, dev)
+    with ENV.local_group(dev, args.dist_backend):
+        return _run(args, data_mesh(args, dev), fused=fused,
+                    profiler=profiler, on_step=on_step)
+
+
+def _run(args, mesh, *, fused=None, profiler=None, on_step=None) -> dict:
     """Train as ``args`` say. ``fused`` (default ``--chunk-steps > 1``)
     picks the chunked engine, so that K = 1 can run through it too;
     ``profiler`` (a ``torch.profiler.profile``; ``--profile-dir`` makes
@@ -327,13 +415,18 @@ def run(args, *, fused=None, profiler=None) -> dict:
     -> {"log", "batch_idx", "state", "sched_state", "model", "seconds",
     "steps",
     "start", "peak_bytes", "peak_reserved", "params", "capture_seconds",
-    "chunk_steps", "obs"} (``model``: the trained ``Model``; ``params``:
-    its parameter count; ``steps``: the
+    "chunk_steps", "obs", "ranks", "reduce_bytes"} (``model``: the
+    trained ``Model``; ``params``: its parameter count; ``steps``: the
     last step run, ``start`` the first (the resumed step, else 0), and the
     log holds the steps between; ``obs``: the ``spc.final`` payload with
     ``--obs-dir``, else None; ``batch_idx``: a scheduled run's batch
-    picks, one a step of the log)."""
+    picks, one a step of the log; ``ranks``: the data-parallel ranks, 0
+    for the single-device engines; ``reduce_bytes``: the bytes of the
+    data-parallel reduction's buffers on this rank, its ``AxisReduce``'s
+    ``buffer_bytes``, else None). ``on_step(j, carry)``, if given, runs
+    after each per-step step (j the steps done)."""
     dev = resolve_device(args.device)
+    engine = engine_of(args)
     k = args.chunk_steps
     if fused is None:
         fused = k > 1
@@ -348,11 +441,21 @@ def run(args, *, fused=None, profiler=None) -> dict:
     model.init(0)
     params = model.params()
     n_params = sum(p.numel() for p in params)
-    print(f"arch={cfg.name} engine={'chunked' if fused else 'per-step'} "
-          f"chunk_steps={k if fused else 1} device={dev} "
-          f"kernels={args.kernels} precision={args.precision} "
-          f"remat={args.remat}")
-    print(f"params: {n_params/1e6:.1f}M")
+    ranks = 0 if mesh is None else mesh.size()
+    local_batch = args.batch // max(ranks, 1)
+    kind = 'chunked' if fused else 'per-step'
+    p0print(f"arch={cfg.name} engine="
+            f"{kind if mesh is None else f'{engine} ({kind})'} "
+            f"chunk_steps={k if fused else 1} device={dev} "
+            f"kernels={args.kernels} precision={args.precision} "
+            f"remat={args.remat}")
+    if mesh is not None:
+        replicate_to_mesh(params, mesh)
+        p0print(f"mesh={{'data': {ranks}}} processes={ranks} "
+                f"backend={ENV.topology().backend} "
+                f"per_device_batch={local_batch}")
+    p0print(f"params: {n_params/1e6:.1f}M"
+            + ("" if mesh is None else " (replicated)"))
     if args.kernels == "cuda" and dev.type == "cuda":
         build.build_all()
 
@@ -364,8 +467,9 @@ def run(args, *, fused=None, profiler=None) -> dict:
     schedule = None
     if args.schedule is not None:
         schedule = schedule_from_spec(args.schedule)
-        print(f"schedule: {schedule} (device-resident selection; non-FCPR "
-              f"policies read SPC limits from the per-batch loss table)")
+        p0print(f"schedule: {schedule} (device-resident selection; "
+                f"non-FCPR policies read SPC limits from the per-batch loss "
+                f"table)")
     obs = _make_observer(args, cfg, icfg, "chunked" if fused else "per-step",
                          table=schedule is not None and schedule.uses_table)
     ckpt = _make_checkpointer(args, layout_for(model.module),
@@ -381,8 +485,16 @@ def run(args, *, fused=None, profiler=None) -> dict:
         # the fused engine and every scheduled engine select on the device:
         # the ring is mandatory
         ring = DeviceRing(ring_epoch(cfg, sampler, args.batch, dev),
-                          args.batch, device=dev)
-    if fused:
+                          args.batch, device=dev, mesh=mesh)
+    if mesh is not None:
+        if fused:
+            init_fn, step_fn = make_chunked_hybrid_step(
+                model.loss_fn, rule, icfg, mesh, chunk_steps=k,
+                schedule=schedule, **common)
+        else:
+            init_fn, step_fn = make_hybrid_step(
+                model.loss_fn, rule, icfg, mesh, schedule=schedule, **common)
+    elif fused:
         init_fn, step_fn = make_chunked_train_step(
             model.loss_fn, rule, icfg, chunk_steps=k, schedule=schedule,
             **common)
@@ -405,7 +517,7 @@ def run(args, *, fused=None, profiler=None) -> dict:
         step_fn.prepare(*carry, ring.arrays)
         capture = step_fn.capture_seconds
         if dev.type == "cuda":
-            print(f"capture: {capture:.1f}s (warm-up and graph capture)")
+            p0print(f"capture: {capture:.1f}s (warm-up and graph capture)")
     elif schedule is not None:
         def one_step(carry, j):
             *carry, m = step_fn(*carry, ring.arrays, j)
@@ -413,9 +525,11 @@ def run(args, *, fused=None, profiler=None) -> dict:
     else:
         feed = sampler
         if args.device_ring:
-            feed = ring_or_prefetch(sampler, device=dev)
-            print(f"input: {type(feed).__name__}")
-        extra = frontend_embeds(cfg, args.batch, dev)
+            feed = ring_or_prefetch(sampler, device=dev, mesh=mesh)
+            p0print(f"input: {type(feed).__name__}")
+        elif mesh is not None:           # this rank's rows, staged ahead
+            feed = prefetched(sampler, mesh, device=dev)
+        extra = frontend_embeds(cfg, local_batch, dev)
         if extra:
             feed = WithExtras(feed, extra)
 
@@ -432,7 +546,7 @@ def run(args, *, fused=None, profiler=None) -> dict:
         else:
             carry, steps, log, picks = _drive_steps(
                 one_step, carry, args.steps, t0, start=start, ckpt=ckpt,
-                obs=obs)
+                obs=obs, on_step=on_step)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         dt = time.perf_counter() - t0
@@ -446,13 +560,13 @@ def run(args, *, fused=None, profiler=None) -> dict:
                              wall=dt)
         if is_coordinator():
             write_merged_summary(args.obs_dir)
-        print(f"obs: {args.obs_dir} "
-              f"spc_reconciled={final.get('reconciled', 'n/a')} "
-              f"accel_events={final['accel_events']}")
-    print(f"done: {ran} steps in {dt:.1f}s "
-          f"({dt/ran*1e3:.0f} ms/step) "
-          f"accelerated={int(state.accel_count)} "
-          f"sub_iters={int(state.sub_iters)}")
+        p0print(f"obs: {args.obs_dir} "
+                f"spc_reconciled={final.get('reconciled', 'n/a')} "
+                f"accel_events={final['accel_events']}")
+    p0print(f"done: {ran} steps in {dt:.1f}s "
+            f"({dt/ran*1e3:.0f} ms/step) "
+            f"accelerated={int(state.accel_count)} "
+            f"sub_iters={int(state.sub_iters)}")
     cuda = dev.type == "cuda"
     return {"log": log, "batch_idx": picks, "state": state,
             "sched_state": sched_state, "model": model, "seconds": dt,
@@ -460,14 +574,16 @@ def run(args, *, fused=None, profiler=None) -> dict:
             "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda else None,
             "peak_reserved": torch.cuda.max_memory_reserved(dev) if cuda else None,
             "params": n_params, "capture_seconds": capture,
-            "chunk_steps": k if fused else 1, "obs": final}
+            "chunk_steps": k if fused else 1, "obs": final, "ranks": ranks,
+            "reduce_bytes": None if mesh is None
+            else init_fn.reduce_ctx.buffer_bytes}
 
 
 def _print_step(j: int, log, **extra):
     more = "".join(f" {k}={v}" for k, v in extra.items())
-    print(f"step {j:4d} loss={log.losses[-1]:.4f} "
-          f"psi_bar={log.psi_bar[-1]:.4f} limit={log.limits[-1]:.4f} "
-          f"accel={log.accelerated[-1]}{more}", flush=True)
+    p0print(f"step {j:4d} loss={log.losses[-1]:.4f} "
+            f"psi_bar={log.psi_bar[-1]:.4f} limit={log.limits[-1]:.4f} "
+            f"accel={log.accelerated[-1]}{more}", flush=True)
 
 
 def _offer(ckpt, j: int, carry) -> None:
@@ -513,13 +629,14 @@ def _drive_chunks(chunk_fn, carry, ring, steps: int, k: int, t0,
 
 
 def _drive_steps(one_step, carry, steps: int, t0, *, start: int = 0,
-                 ckpt=None, obs=None):
+                 ckpt=None, obs=None, on_step=None):
     """The per-step engines from ``start`` to ``steps``: ``one_step(carry,
     j) -> (carry, metrics)``. Metrics stay on the device until the print
     boundaries (step 1 and every 5th) and the end, as ``train`` defers them
     (``trainer.Deferred``), and the log marks the walls estimated; a
     scheduled step's pick is printed (``batch=``). ``ckpt`` is offered
-    every step boundary. -> (carry, last step run, log, batch picks)."""
+    every step boundary, then ``on_step(j + 1, carry)`` runs if given.
+    -> (carry, last step run, log, batch picks)."""
     log, picks = TrainLog(), []
     deferred = Deferred(log, obs)
 
@@ -535,6 +652,8 @@ def _drive_steps(one_step, carry, steps: int, t0, *, start: int = 0,
             _print_step(j + 1, log,
                         **({"batch": picks[-1]} if picks else {}))
         _offer(ckpt, j + 1, carry)
+        if on_step is not None:
+            on_step(j + 1, carry)
     flush()
     return carry, steps, log, picks
 
@@ -546,6 +665,7 @@ def main(argv=None) -> dict:
     try:
         resolve_device(args.device)
         resolve_config(args)
+        engine_of(args)
         if args.schedule is not None:
             schedule_from_spec(args.schedule)
     except (RuntimeError, ValueError, TypeError) as e:   # the CLI boundary

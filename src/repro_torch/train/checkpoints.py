@@ -39,8 +39,9 @@ training stale buffers (or force a new capture).
 
 ``Checkpointer(pointer=True)`` publishes each save to a serving process
 through the atomic ``LATEST`` pointer (``repro_torch.serve.snapshot``).
-Not ported yet: ``Checkpointer(role="validate")`` and its barrier
-(multi-process runs), which raises until it lands.
+In a multi-process (data-parallel) run process 0 writes and every other
+process validates its own replica against the written file
+(``Checkpointer(role="validate")``, after a barrier over the group).
 """
 from __future__ import annotations
 
@@ -233,6 +234,18 @@ def _as_like(arr: np.ndarray, leaf):
     if isinstance(leaf, np.ndarray) or np.isscalar(leaf):
         return np.asarray(arr, dtype=np.asarray(leaf).dtype)
     return arr
+
+
+def _stored_checksum(path: str) -> Optional[str]:
+    """The content checksum a file's ``__meta__`` records (only that member
+    is read)."""
+    path = _norm_path(path)
+    try:
+        with np.load(path, allow_pickle=False) as data:
+            return json.loads(str(data["__meta__"])).get("checksum")
+    except Exception as e:   # missing, BadZipFile, KeyError, ValueError
+        raise CheckpointError(f"checkpoint {path!r} cannot be validated "
+                              f"({type(e).__name__}: {e})") from e
 
 
 def restore(path: str, like):
@@ -477,24 +490,46 @@ class Checkpointer:
     (``repro_torch.serve.snapshot``). Pruning keeps the ``keep`` newest
     files, so the pointed-to checkpoint always survives.
 
-    One process writes: ``role="validate"`` (the other processes of a
-    multi-process run) is not ported yet and raises."""
+    **Multi-process runs: process 0 writes, all validate.** Params and
+    ISGD state are replicated across the ranks of a data-parallel run
+    (``repro_torch.distributed``), so one file is enough. ``role`` picks
+    the behaviour: ``"write"`` (the default on rank 0 and in a process
+    without a group) does everything above and then waits at a barrier over
+    the group; ``"validate"`` (the default elsewhere) never writes, but at
+    every save point checksums *its own replica* of the engine state, waits
+    at the same barrier (the writer's atomic publish is done after it), and
+    raises :class:`CheckpointError` when the written file's content
+    checksum differs: a replica that diverged fails at the next checkpoint
+    instead of poisoning a later ``--resume``. The cadence is a pure
+    function of (step, every, last save), so every rank reaches the barrier
+    at the same save points. Validation reads the writer's directory (the
+    same machine or a shared file system)."""
 
     def __init__(self, directory: str, every: int = 0, keep: int = 3,
                  pointer: bool = False, role: Optional[str] = None,
                  recorder=None, *, layout: Layout):
-        if role not in (None, "write"):
-            raise NotImplementedError(
-                f"Checkpointer(role={role!r}): multi-process checkpoint "
-                f"validation is not ported yet")
+        if role is None:
+            from repro_torch.obs.console import process_index
+            role = "write" if process_index() == 0 else "validate"
+        if role not in ("write", "validate"):
+            raise ValueError(f"Checkpointer role {role!r}: write or validate")
         self.directory = directory
         self.every = every
         self.keep = keep
         self.pointer = pointer
-        self.recorder = recorder
+        self.role = role
+        self.recorder = recorder   # save events, write role only
         self.layout = layout
         self._last = 0
-        os.makedirs(directory, exist_ok=True)
+        if role == "write":
+            os.makedirs(directory, exist_ok=True)
+
+    @staticmethod
+    def _barrier() -> None:
+        import torch.distributed as dist
+        if dist.is_available() and dist.is_initialized() \
+                and dist.get_world_size() > 1:
+            dist.barrier()
 
     def path(self, step: int) -> str:
         return os.path.join(self.directory, f"ckpt_{step:08d}.npz")
@@ -505,15 +540,30 @@ class Checkpointer:
         self._last = int(step)
 
     def save(self, step: int, **engine_kwargs) -> str:
-        t0 = time.perf_counter()
-        out = save_engine(self.path(step), step=step, layout=self.layout,
-                          **engine_kwargs)
+        out = self.path(step)
         self._last = int(step)
+        if self.role == "validate":
+            tree, _ = pack_engine_state(step=step, layout=self.layout,
+                                        **engine_kwargs)
+            local = tree_checksum(tree)
+            self._barrier()                    # the writer's publish is done
+            stored = _stored_checksum(out)
+            if stored != local:
+                raise CheckpointError(
+                    f"process replica diverged at step {step}: its engine "
+                    f"state checksums {local} but the written checkpoint "
+                    f"{out!r} has {stored}; the replicated params/state are "
+                    f"no longer identical across the multi-process run")
+            return out
+        t0 = time.perf_counter()
+        out = save_engine(out, step=step, layout=self.layout,
+                          **engine_kwargs)
         if self.recorder is not None:
             self.recorder.counter("checkpoint/saves")
             self.recorder.event("checkpoint.save", step=int(step), path=out,
                                 seconds=time.perf_counter() - t0,
                                 bytes=os.path.getsize(out))
+        self._barrier()                        # validators read after this
         if self.pointer:
             from repro_torch.serve.snapshot import publish_pointer
             publish_pointer(self.directory, out)

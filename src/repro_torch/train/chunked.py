@@ -44,6 +44,7 @@ import torch
 from repro_torch.core import control
 from repro_torch.core.isgd import (ISGDConfig, consistent_step_device,
                                    isgd_device_init, isgd_step_device)
+from repro_torch.core.reduce import LOCAL, ReduceCtx
 from repro_torch.kernels import graph_if
 from repro_torch.obs.timing import named_scope
 from repro_torch.optim.base import UpdateRule
@@ -69,14 +70,16 @@ def _tensors(tree):
 
 def make_device_step(loss_fn: Callable, rule: UpdateRule, isgd_cfg: ISGDConfig,
                      *, inconsistent: bool = True, lr_fn: Callable,
-                     micro_batches: int = 1):
+                     reduce_ctx: ReduceCtx = LOCAL, micro_batches: int = 1):
     """``(init_fn, step_fn)`` of the device form. ``init_fn(params)`` ->
     ``DeviceISGDState``; ``step_fn(state, params, batch, slot=None)`` ->
     ``(state, params, metrics)``, updating in place, with the LR read from
     ψ̄ before the push; ``slot`` as in ``core.isgd.isgd_step_device``.
     ``micro_batches`` as in ``make_loss_and_grad``: the loop over
     micro-batches is static, so a capture records it like the rest of the
-    step (its f32 gradient sums live in the graph's pool)."""
+    step (its f32 gradient sums live in the graph's pool). ``reduce_ctx``
+    as in ``trainer.make_step_core``; an ``AxisReduce`` writes its static
+    buffers in place, so a capture holds its collective."""
     lg = make_loss_and_grad(loss_fn, micro_batches)
 
     def init_fn(params):
@@ -87,9 +90,9 @@ def make_device_step(loss_fn: Callable, rule: UpdateRule, isgd_cfg: ISGDConfig,
         lr = lr_fn(control.mean(state.queue))
         if inconsistent:
             return isgd_step_device(rule, isgd_cfg, lg, state, params, batch,
-                                    lr, slot=slot)
+                                    lr, slot=slot, reduce_ctx=reduce_ctx)
         return consistent_step_device(rule, lg, state, params, batch, lr,
-                                      slot=slot)
+                                      slot=slot, reduce_ctx=reduce_ctx)
 
     return init_fn, step_fn
 
@@ -231,7 +234,9 @@ def chunk_over_ring(step_fn: Callable, n_batches: int,
 def make_chunked_train_step(loss_fn: Callable, rule: UpdateRule,
                             isgd_cfg: ISGDConfig, *, chunk_steps: int,
                             inconsistent: bool = True,
-                            lr_fn: Callable = None, micro_batches: int = 1,
+                            lr_fn: Callable = None,
+                            reduce_ctx: ReduceCtx = LOCAL,
+                            micro_batches: int = 1,
                             schedule=None, sched_seed: int = 0):
     """``(init_fn, chunk_fn)`` of the single-device fused engine.
     ``lr_fn`` is required: inside a chunk the LR is derived on the device
@@ -249,7 +254,7 @@ def make_chunked_train_step(loss_fn: Callable, rule: UpdateRule,
         raise ValueError("the chunked engine needs lr_fn (no per-step host)")
     init_dev, step_fn = make_device_step(loss_fn, rule, isgd_cfg,
                                          inconsistent=inconsistent,
-                                         lr_fn=lr_fn,
+                                         lr_fn=lr_fn, reduce_ctx=reduce_ctx,
                                          micro_batches=micro_batches)
 
     def init_fn(params):

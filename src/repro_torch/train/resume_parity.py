@@ -1,7 +1,7 @@
 """Kill-and-resume parity: a checkpointed run resumes **bit for bit**.
 
-Port of ``repro.train.resume_parity``, the legs that run on one device.
-Each leg runs the same FCPR problem twice:
+Port of ``repro.train.resume_parity``, its synchronous legs. Each leg runs
+the same FCPR problem twice:
 
   * **uninterrupted** — the reference trajectory to S steps;
   * **killed** — run to step k, write a full-engine checkpoint
@@ -25,12 +25,19 @@ Legs:
     parity. (The JAX package's fused leg is not bit-exact with its own
     per-step engine on XLA:CPU in every version, so it is no reference.)
   * ``sched`` — the fused engine under ``loss-prop``, the EMA table in the
-    checkpoint.
+    checkpoint;
+  * ``hybrid`` — the data-parallel engine (``repro_torch.distributed``,
+    the reference's hybrid engine on a data-only mesh) across the process
+    group (a one-rank group made for the leg when none exists), each rank on
+    its rows; the checkpoint is written by rank 0 and validated by every
+    other rank (``Checkpointer`` roles) in a directory rank 0 makes and
+    shares, and every rank restores from it.
 
-The ``hybrid`` and ``async-ps`` legs wait for the data-parallel and
-async-PS ports.
+The ``async-ps`` leg waits for the async-PS port.
 
     PYTHONPATH=src python -m repro_torch.train.resume_parity [--device cpu]
+    PYTHONPATH=src python -m repro_torch.train.resume_parity --device cpu \
+        --procs 2               # the hybrid leg across two spawned ranks
 
 Exit 0 iff every leg is bit-exact, 2 if the subproblem never fired.
 """
@@ -222,17 +229,67 @@ def _leg_sched(tmp: str, S: int, k: int, device) -> dict:
                 (pr2, _state(st2), s2), a_ref)
 
 
-LEGS = ("per-step", "chunked", "sched")
+def _leg_hybrid(S: int, k: int, device, backend=None) -> dict:
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed import batch_sharding, make_hybrid_step
+    from repro_torch.launch import env
+    from repro_torch.launch.mesh import make_host_mesh
+    make, sampler, icfg, rule, lr_fn = _problem(device)
+    with env.local_group(device, backend):
+        mesh = make_host_mesh(model=1, device=device.type, backend=backend)
+        cut = batch_sharding(mesh)
+
+        def run(j0, j1, ck=None):
+            params, loss_fn = make()
+            init_fn, step = make_hybrid_step(loss_fn, rule, icfg, mesh,
+                                             lr_fn=lr_fn)
+            state = init_fn(params)
+            if ck is not None:                 # fresh templates, in place
+                state = checkpoints.restore_engine(
+                    ck, params_like=params, state_like=state,
+                    layout=LAYOUT).state
+            accel = 0
+            for j in range(j0, j1):
+                batch = {n: torch.from_numpy(v).to(device)
+                         for n, v in cut(sampler(j)).items()}
+                state, params, m = step(state, params, batch)
+                accel += int(m["accelerated"])
+            return params, state, accel
+
+        # one directory for every rank: rank 0 makes it and shares its name
+        name = [tempfile.mkdtemp(prefix="resume_hybrid_")
+                if dist.get_rank() == 0 else None]
+        dist.broadcast_object_list(name, src=0)
+        try:
+            params, state, a_ref = run(0, S)
+            pr, st, _ = run(0, k)
+            ckpt = checkpoints.Checkpointer(name[0], layout=LAYOUT)
+            path = ckpt.save(k, params=pr, state=st)
+            pr2, st2, _ = run(k, S, ck=path)
+            dist.barrier()                     # every rank restored
+        finally:
+            if dist.get_rank() == 0:
+                shutil.rmtree(name[0], ignore_errors=True)
+    return _leg("hybrid", (params, _state(state)), (pr2, _state(st2)),
+                a_ref)
+
+
+LEGS = ("per-step", "chunked", "sched", "hybrid")
 
 
 def run_resume_parity(S: int = 30, k: int = 10, *, legs=LEGS,
-                      device="cuda") -> list:
+                      device="cuda", backend=None) -> list:
     """One result dict per leg: {"leg", "ok", "max_dev", "accelerations"};
-    ``ok`` means bit-exact (max_dev == 0.0)."""
+    ``ok`` means bit-exact (max_dev == 0.0). ``backend`` is the hybrid
+    leg's, where it makes its group."""
     dev = resolve_device(device)
     runners = {"per-step": lambda t: _leg_per_step(t, S, k, dev),
                "chunked": lambda t: _leg_chunked(t, S, 6, dev),
-               "sched": lambda t: _leg_sched(t, S, max(3, k - k % 3), dev)}
+               "sched": lambda t: _leg_sched(t, S, max(3, k - k % 3), dev),
+               "hybrid": lambda t: _leg_hybrid(S, k, dev, backend)}
     unknown = set(legs) - set(runners)
     if unknown:
         raise ValueError(f"legs {sorted(unknown)} are not ported yet "
@@ -241,13 +298,29 @@ def run_resume_parity(S: int = 30, k: int = 10, *, legs=LEGS,
         return [runners[leg](tmp) for leg in legs]
 
 
+def _rank(rank, world, S, k, device):
+    """``spawn_ranks`` target: the hybrid leg on one rank."""
+    return run_resume_parity(S, k, legs=("hybrid",), device=device)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--kill-at", type=int, default=10)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--procs", type=int, default=1,
+                    help="> 1: the hybrid leg across this many spawned ranks")
+    ap.add_argument("--backend", default=None, choices=["nccl", "gloo"])
     args = ap.parse_args(argv)
-    results = run_resume_parity(args.steps, args.kill_at, device=args.device)
+    if args.procs > 1:
+        from repro_torch.launch.env import spawn_ranks
+        ranks = spawn_ranks(_rank, args.procs, args.steps, args.kill_at,
+                            args.device, device=args.device,
+                            backend=args.backend)
+        results = [dict(ranks[0][0], ok=all(r[0]["ok"] for r in ranks))]
+    else:
+        results = run_resume_parity(args.steps, args.kill_at,
+                                    device=args.device, backend=args.backend)
     fired = 0
     for r in results:
         fired += r["accelerations"]

@@ -23,6 +23,7 @@ import torch
 from repro_torch.core import control
 from repro_torch.core.isgd import (ISGDConfig, consistent_step, isgd_init,
                                    isgd_step)
+from repro_torch.core.reduce import LOCAL, ReduceCtx
 from repro_torch.core.schedule import constant_lr
 from repro_torch.optim.base import UpdateRule
 
@@ -81,11 +82,14 @@ def make_loss_and_grad(loss_fn: Callable, micro_batches: int = 1):
 
 def make_step_core(loss_fn: Callable, rule: UpdateRule, isgd_cfg: ISGDConfig,
                    *, inconsistent: bool = True, lr_fn: Callable = None,
-                   micro_batches: int = 1):
+                   reduce_ctx: ReduceCtx = LOCAL, micro_batches: int = 1):
     """``(init_fn, step_fn)``. When ``lr`` is not passed, ``lr_fn`` reads ψ̄
     from the queue BEFORE this step's loss is pushed: the LR is driven by
     the previous step's statistics (Alg.1 line 19). ``micro_batches`` as in
-    ``make_loss_and_grad``.
+    ``make_loss_and_grad`` (under data parallelism each rank splits its own
+    rows). ``reduce_ctx`` (``core.reduce``) reduces every evaluation: the
+    data-parallel engine (``repro_torch.distributed``) passes its
+    ``AxisReduce`` here.
 
     ``step_fn(state, params, batch, lr=None, slot=None)`` ->
     ``(state, params, metrics)``."""
@@ -99,24 +103,27 @@ def make_step_core(loss_fn: Callable, rule: UpdateRule, isgd_cfg: ISGDConfig,
             lr = lr_fn(control.mean(state.queue))
         if inconsistent:
             return isgd_step(rule, isgd_cfg, lg, state, params, batch, lr,
-                             slot=slot)
-        return consistent_step(rule, lg, state, params, batch, lr, slot=slot)
+                             slot=slot, reduce_ctx=reduce_ctx)
+        return consistent_step(rule, lg, state, params, batch, lr, slot=slot,
+                               reduce_ctx=reduce_ctx)
 
     return init_fn, step_fn
 
 
 def make_train_step(loss_fn: Callable, rule: UpdateRule, isgd_cfg: ISGDConfig,
-                    *, inconsistent: bool = True, lr_fn: Callable = None):
+                    *, inconsistent: bool = True, lr_fn: Callable = None,
+                    reduce_ctx: ReduceCtx = LOCAL):
     """Returns (init_fn, step_fn), as ``make_step_core`` (eager: no jit)."""
     return make_step_core(loss_fn, rule, isgd_cfg, inconsistent=inconsistent,
-                          lr_fn=lr_fn)
+                          lr_fn=lr_fn, reduce_ctx=reduce_ctx)
 
 
 def make_scheduled_train_step(loss_fn: Callable, rule: UpdateRule,
                               isgd_cfg: ISGDConfig, schedule, *,
                               inconsistent: bool = True,
-                              lr_fn: Callable = None, micro_batches: int = 1,
-                              sched_seed: int = 0):
+                              lr_fn: Callable = None,
+                              reduce_ctx: ReduceCtx = LOCAL,
+                              micro_batches: int = 1, sched_seed: int = 0):
     """Per-step engine with on-device batch *selection*
     (``repro_torch.sched``). Returns ``(init_fn, step_fn)`` with
     ``step_fn(state, params, sched_state, ring_arrays, j) -> (state,
@@ -134,7 +141,7 @@ def make_scheduled_train_step(loss_fn: Callable, rule: UpdateRule,
     from repro_torch.sched.engine import make_scheduled_body
     init_fn, step_fn = make_step_core(
         loss_fn, rule, isgd_cfg, inconsistent=inconsistent, lr_fn=lr_fn,
-        micro_batches=micro_batches)
+        reduce_ctx=reduce_ctx, micro_batches=micro_batches)
     return init_fn, make_scheduled_body(step_fn, schedule,
                                         isgd_cfg.n_batches, sched_seed)
 

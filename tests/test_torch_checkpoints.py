@@ -16,8 +16,12 @@ CPU.
     on the port's trajectory;
   * the restore copies into the run's own tensors (the fused engine's
     graph holds their addresses);
-  * ``repro_torch.train.resume_parity``'s three legs are bit-exact (max
-    deviation 0.0) with accelerations across the kill.
+  * ``repro_torch.train.resume_parity``'s four legs are bit-exact (max
+    deviation 0.0) with accelerations across the kill, the ``hybrid`` leg
+    also across two spawned gloo ranks;
+  * ``Checkpointer(role="validate")``: a validator whose replica equals the
+    written file passes, one perturbed raises ``CheckpointError`` (in one
+    process, and on rank 1 of two spawned ranks, rank 0 writing).
 """
 import dataclasses
 import os
@@ -240,12 +244,25 @@ def test_checkpointer_cadence_latest_prune(tmp_path):
 @pytest.mark.parametrize("kw,match", [(dict(pointer=True), None),
                                       (dict(role="validate"), "multi-process")])
 def test_checkpointer_parts_not_ported_raise(tmp_path, kw, match):
-    """``role="validate"`` is not ported yet and raises; ``pointer=True``
-    is (serving's publish directory): each save moves ``LATEST`` to the
-    file it wrote, and pruning never removes that file."""
+    """``role="validate"`` checks its replica against the writer's file: it
+    writes nothing, passes on an equal replica and raises on one that
+    diverged. ``pointer=True`` (serving's publish directory): each save
+    moves ``LATEST`` to the file it wrote, and pruning never removes that
+    file."""
     if match is not None:
-        with pytest.raises(NotImplementedError, match=match):
-            Checkpointer(str(tmp_path), layout=W, **kw)
+        params = [torch.ones(2)]
+        state = isgd_init(momentum(0.9), ISGDConfig(n_batches=4), params)
+        writer = Checkpointer(str(tmp_path), layout=W)
+        validator = Checkpointer(str(tmp_path / "v"), layout=W, **kw)
+        validator.directory = str(tmp_path)
+        assert (writer.role, validator.role) == ("write", "validate")
+        out = writer.save(2, params=params, state=state)
+        assert validator.save(2, params=params, state=state) == out
+        writer.save(4, params=params, state=state)
+        params[0][1] += 1e-6
+        with pytest.raises(CheckpointError, match=match):
+            validator.save(4, params=params, state=state)
+        assert not os.path.exists(tmp_path / "v")   # a validator never writes
         return
     from repro_torch.serve import read_pointer
     params = [torch.ones(2)]
@@ -485,6 +502,28 @@ def test_resume_parity_cli(capsys):
     assert resume_parity.main(["--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert out.count("BIT-EXACT") == len(resume_parity.LEGS)
+
+
+def test_resume_parity_hybrid_leg_over_two_ranks(capsys):
+    assert resume_parity.main(["--device", "cpu", "--procs", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "resume-parity   hybrid: max_dev=0.000e+00" in out
+    assert out.count("BIT-EXACT") == 1
+
+
+def test_validator_rank_catches_a_diverged_replica(tmp_path):
+    import _torch_dist_workers as WK
+    from repro_torch.launch.env import spawn_ranks
+    same = spawn_ranks(WK.validate_rank, 2, str(tmp_path / "same"), False,
+                       timeout=240)
+    assert [r[0] for r in same] == ["write", "validate"]
+    assert same[0][1] == same[1][1] and same[1][2] is None
+    off = spawn_ranks(WK.validate_rank, 2, str(tmp_path / "off"), True,
+                      timeout=240)
+    assert off[0][2] is None
+    assert "diverged at step 8" in off[1][2]
+    assert sorted(os.listdir(tmp_path / "off")) == ["ckpt_00000004.npz",
+                                                    "ckpt_00000008.npz"]
 
 
 def test_layout_keys_are_the_references():

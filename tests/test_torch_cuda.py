@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card, against their plain versions, the
-chunked engine's CUDA graph against the eager per-step engine, and the
-serving slot engine's decode graph against its eager decode.
+chunked engine's CUDA graph against the eager per-step engine, the
+data-parallel engine on one NCCL rank, and the serving slot engine's
+decode graph against its eager decode.
 
 Every test here needs an NVIDIA GPU (``cuda`` marker) and skips without
 one. The file imports neither jax nor the JAX package, and runs on a
@@ -731,6 +732,50 @@ def test_resume_parity_on_card(cuda):
     for r in run_resume_parity(device="cuda"):
         assert r["ok"] and r["max_dev"] == 0.0, r
         assert r["accelerations"] > 0, r
+
+
+@pytest.mark.cuda
+def test_data_parallel_parity_on_card(cuda):
+    """The data-parallel engine on one NCCL rank against the single-device
+    engine on the reference's least-squares rig: the one-rank gather and
+    mean leave every value as it was, so the two agree bit for bit; then
+    the fused data-parallel engine (its collectives inside the CUDA graph
+    and its IF nodes) against the per-step one, bit for bit, with the
+    branch firing."""
+    from repro_torch.distributed import (make_chunked_data_parallel_step,
+                                         make_data_parallel_step)
+    from repro_torch.distributed.parity import problem, run_parity
+    from repro_torch.core import constant_lr
+    from repro_torch.data import DeviceRing
+    from repro_torch.launch import env
+    from repro_torch.launch.mesh import make_data_mesh
+    from repro_torch.optim import momentum
+    r = run_parity(device="cuda")
+    assert r["ok"] and r["accelerations"] > 0, r
+    assert r["max_param"] == r["max_psi_bar"] == r["max_limit"] == 0.0
+    make, sampler, icfg = problem(cuda)
+    lr_fn = constant_lr(0.01)
+    with env.local_group(cuda):
+        mesh = make_data_mesh("cuda")
+        ring = DeviceRing(sampler.epoch_arrays(), sampler.batch_size,
+                          mesh=mesh)
+        p1, lf = make()
+        init, step = make_data_parallel_step(lf, momentum(0.9), icfg, mesh,
+                                             lr_fn=lr_fn)
+        s1, losses, accel = init(p1), [], 0
+        for j in range(16):
+            s1, p1, m = step(s1, p1, ring(j))
+            losses.append(float(m["loss"]))
+            accel += int(m["accelerated"])
+        p2, lf = make()
+        init, chunk = make_chunked_data_parallel_step(
+            lf, momentum(0.9), icfg, mesh, chunk_steps=4, lr_fn=lr_fn)
+        s2, fused = init(p2), []
+        for c in range(4):
+            s2, p2, ms = chunk(s2, p2, ring.arrays, 4 * c)
+            fused += ms["loss"].tolist()
+    assert accel > 0 and fused == losses
+    assert all(torch.equal(a, b) for a, b in zip(p1, p2))
 
 
 # ---------------------------------------------------------------------------

@@ -28,7 +28,12 @@ def test_port_imports_no_jax_and_no_repro():
         "from repro_torch.configs import ARCH_IDS\n"
         "need = ['repro_torch.models.moe', 'repro_torch.sched.parity',\n"
         "        'repro_torch.train.checkpoints',\n"
-        "        'repro_torch.train.resume_parity'] + [\n"
+        "        'repro_torch.train.resume_parity',\n"
+        "        'repro_torch.distributed', 'repro_torch.core.reduce',\n"
+        "        'repro_torch.distributed.data_parallel',\n"
+        "        'repro_torch.distributed.prefetch',\n"
+        "        'repro_torch.distributed.parity',\n"
+        "        'repro_torch.launch.env', 'repro_torch.launch.mesh'] + [\n"
         "    'repro_torch.configs.' + a for a in ARCH_IDS]\n"
         "print('MISSING', [m for m in need if m not in sys.modules])\n"
         "print('BAD', bad, 'N', n)\n")

@@ -19,7 +19,9 @@ Mirrors the single-device half of ``tests/test_sched.py``:
     holding one loss per batch, one chunk call per K steps; and, since the
     port's draws cannot match ``jax.random.categorical``, the same draws on
     a rerun and per-step against fused (a pure function of seed, step and
-    table).
+    table);
+  * the data-parallel legs of ``repro.sched.parity`` over two spawned gloo
+    ranks (``repro_torch.sched.parity --procs 2``).
 """
 import jax
 import jax.numpy as jnp
@@ -320,6 +322,22 @@ def test_sched_parity_inprocess():
 def test_sched_parity_cli(capsys):
     assert parity.main(["--device", "cpu"]) == 0
     assert "-> OK" in capsys.readouterr().out
+
+
+def test_sched_parity_dp_legs_over_two_ranks(capsys):
+    """The data-parallel legs over two spawned gloo ranks: the scheduled
+    data-parallel engine (per-step and fused K = 4) bit for bit with the
+    data-parallel engine on host rows, the ranks' loss-prop draws equal,
+    the two-rank fused run selecting the one-device run's batches."""
+    assert parity.main(["--device", "cpu", "--procs", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "sched-parity devices=2 " in out and "legs=10 failed=none" in out
+    r = parity.run_sched_parity(steps=STEPS, device="cpu")
+    assert [n for n in r["legs"] if " dp " in n or "shard" in n
+            or "1-vs-n" in n] == [
+        "sched-fcpr dp per-step", "sched-fcpr dp chunked K4",
+        "loss-prop shard-draw agreement",
+        "loss-prop 1-vs-n-device selection"]
 
 
 # ---------------------------------------------------------------------------
