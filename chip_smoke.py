@@ -65,7 +65,19 @@ ranks' own and each ψ the f32 mean of the shards' bit for bit, and each
 rank's ψ within the bf16 ``fused_xent`` tolerance of the single-device
 run; ``dp_parity`` runs
 ``python -m repro_torch.distributed.parity`` with two gloo ranks and one
-NCCL rank. Then serving (``repro_torch.serve``,
+NCCL rank. Then the hybrid DP × TP engine, the pod axis and the zoo
+parity matrix: ``hybrid`` trains ``paper-transformer`` base at full width
+and depth through ``--engine hybrid --model-parallel 2`` on two gloo ranks
+sharing the card (a ``(data=1, model=2)`` mesh: 8 query and 4 KV heads of
+every layer and half of every MLP a rank), 4 per-step steps, each rank's
+ψ within the bf16 tolerance of the single-device run, the ranks' logs and
+replicated tensors (and at the end the whole params, gathered) bit for
+bit, each rank's launches counted on the device (32 ``flash_attention``
+and 1 ``fused_xent`` an evaluation), with s/step, peak and the bytes the
+tensor-parallel collectives move; ``hybrid_parity``, ``multihost_parity``
+and ``zoo_parity`` run the three harnesses on the card (gloo ranks, and
+one NCCL rank for the fused legs; the zoo's kernel leg is ``--kernels
+cuda`` against ``reference``). Then serving (``repro_torch.serve``,
 which runs the plain paths, as the reference serves without its kernels):
 ``serve`` drives ``paper-transformer`` base through the serve launcher's
 continuous engine (48 mixed-length requests on 16 slots of 1024
@@ -1489,7 +1501,8 @@ def launch_child(out: str, spec: dict, argv: list):
     for w in wrappers.values():
         w.launches = 0
     args = launcher.parse_args(argv)
-    check = ReplicaCheck() if spec.get("replicas") else None
+    check = ReplicaCheck(spec.get("tp", False)) if spec.get("replicas") \
+        else None
     gathers = probe_gathers() if spec.get("probe") else None
     device = None
     if spec.get("counted"):
@@ -1499,6 +1512,21 @@ def launch_child(out: str, spec: dict, argv: list):
         res = launcher.run(args, on_step=check)
     peaks = [res["peak_bytes"]] + ([] if check is None else check.peaks)
     log = res["log"]
+    tp = None
+    if res["placement"] is not None:        # the tensor-parallel strategy
+        pl = res["placement"]
+        whole = pl.full(res["local_params"])
+        tp = {"bytes": res["tp_bytes"],
+              "whole_params": replica_agreement_of(
+                  replica_checksum(whole), whole[0].device),
+              "split": sum(lf.tp_dim is not None for lf in pl.leaves),
+              "gathered": sum(bool(lf.gathers) for lf in pl.leaves),
+              "held": sum(t.numel() for t in res["local_params"]),
+              "attn_local_heads": {
+                  lf.name.rsplit(".", 1)[-1]: lf.compute.shape[1] // 64
+                  for lf in pl.leaves
+                  if lf.name in ("layers.0.mixer.wq", "layers.0.mixer.wk")}}
+        del whole
     with open(out, "w") as fh:
         json.dump({"rank": process_index(), "ranks": res["ranks"],
                    "start": res["start"], "steps": res["steps"],
@@ -1513,7 +1541,7 @@ def launch_child(out: str, spec: dict, argv: list):
                    "reduce_bytes": res["reduce_bytes"],
                    "params": res["params"],
                    "replicas": None if check is None else check.rows,
-                   "gathers": gathers}, fh)
+                   "gathers": gathers, "tp": tp}, fh)
 
 
 def run_children(argvs: list, outs: list, specs: list) -> list:
@@ -1644,22 +1672,37 @@ def replica_checksum(tensors) -> torch.Tensor:
     return acc
 
 
-def replica_agreement(carry) -> dict:
-    """Every rank's checksum of its params, optimizer state, ψ queue and
-    counters after a step, gathered in rank order: {"equal", "sums"}."""
+def replica_agreement_of(mine, dev) -> dict:
+    """Every rank's checksum ``mine``, gathered in rank order: {"equal",
+    "sums"}."""
     import torch.distributed as dist
-    from repro_torch.core.reduce import tree_leaves
-    state, params = carry[0], carry[1]
-    dev = params[0].device
-    counters = torch.tensor([int(state.iter), int(state.accel_count),
-                             int(state.sub_iters)], device=dev)
-    mine = replica_checksum(list(params) + tree_leaves(state.base)
-                            + tree_leaves(tuple(state.queue)) + [counters])
     sums = [torch.zeros(1, dtype=torch.int64, device=dev)
             for _ in range(dist.get_world_size())]
     dist.all_gather(sums, mine.reshape(1))
     sums = [int(x) for x in sums]
     return {"equal": len(set(sums)) == 1, "sums": sums}
+
+
+def replica_agreement(carry, tp: bool = False) -> dict:
+    """Every rank's checksum of its params, optimizer state, ψ queue and
+    counters after a step, gathered in rank order: {"equal", "sums"}. With
+    ``tp`` (the tensor-parallel strategy) the params and velocities are
+    those the placement replicates (spec all None), the rest being
+    shards."""
+    from repro_torch.core.reduce import tree_leaves
+    state, params = carry[0], carry[1]
+    dev = params[0].device
+    base = list(tree_leaves(state.base))
+    if tp:
+        pl = params[0]._repro_placement
+        keep = [not any(lf.spec) and lf.tp_dim is None for lf in pl.leaves]
+        params = [p for p, k in zip(params, keep) if k]
+        base = [v for v, k in zip(base, keep) if k]
+    counters = torch.tensor([int(state.iter), int(state.accel_count),
+                             int(state.sub_iters)], device=dev)
+    mine = replica_checksum(list(params) + base
+                            + tree_leaves(tuple(state.queue)) + [counters])
+    return replica_agreement_of(mine, dev)
 
 
 class ReplicaCheck:
@@ -1669,8 +1712,8 @@ class ReplicaCheck:
     figures: the device is synchronised first, the peak so far is kept in
     ``peaks``, and the peak counter is reset after the checksum."""
 
-    def __init__(self):
-        self.rows, self.peaks = [], []
+    def __init__(self, tp: bool = False):
+        self.rows, self.peaks, self.tp = [], [], tp
 
     def __call__(self, j: int, carry):
         dev = carry[1][0].device
@@ -1679,7 +1722,7 @@ class ReplicaCheck:
             torch.cuda.synchronize(dev)
             self.peaks.append(torch.cuda.max_memory_allocated(dev))
         t0 = time.perf_counter()
-        row = replica_agreement(carry)
+        row = replica_agreement(carry, self.tp)
         row["seconds"] = time.perf_counter() - t0
         if cuda:
             torch.cuda.reset_peak_memory_stats(dev)
@@ -1917,6 +1960,164 @@ def phase_dp_parity():
             raise SystemExit(f"dp_parity --procs {procs} --backend "
                              f"{backend}: rc {r.returncode}\n"
                              f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+
+
+# ---------------------------------------------------------------------------
+# the hybrid DP × TP engine, the pod axis and the zoo parity matrix
+# ---------------------------------------------------------------------------
+HYBRID_STEPS = 4                           # the two tensor-parallel ranks' steps
+
+
+def phase_hybrid(per_step: dict) -> dict:
+    """``paper-transformer`` base at full width and depth through
+    ``--engine hybrid --model-parallel 2``: two ranks sharing the card over
+    gloo on a ``(data=1, model=2)`` mesh, each holding 8 of the 16 query
+    heads and 4 of the 8 KV heads of every layer and half of every MLP,
+    the embedding and head split over the vocab (gathered for the loss),
+    per-step for HYBRID_STEPS steps with the subproblem allowed to fire.
+    Each rank's ψ must stay within the bf16 ``fused_xent`` tolerance of
+    the single-device run's (``train``) and its decisions equal wherever
+    that run's ψ is clear of its limit; the ranks' loss/ψ̄/limit logs must
+    be equal bit for bit, and after every step the replicated tensors (the
+    norm scales, their velocities, the ψ queue, the counters) checksum
+    alike on both ranks; at the end the whole params, gathered, too. Each
+    rank's kernel launches are counted on the device over the timed steps:
+    ``flash_attention`` 32 an evaluation (16 layers, forward and
+    recomputation, on the rank's heads) and ``fused_xent`` 1. s/step,
+    peak GiB a rank and the bytes the tensor-parallel collectives move an
+    evaluation (model-axis sums and parameter gathers a rank receives) are
+    printed. A correctness check of the path, not a speed figure: gloo
+    stages every collective through the host."""
+    import tempfile
+
+    from repro_torch.kernels.numerics import TOLERANCES
+    t0 = time.perf_counter()
+    rtol, atol = TOLERANCES["fused_xent"]["bfloat16"]
+    argv = train_args("transformer", HYBRID_STEPS) + [
+        "--engine", "hybrid", "--model-parallel", "2", "--dist-backend",
+        "gloo", "--coordinator", f"127.0.0.1:{free_port()}",
+        "--num-processes", "2"]
+    with tempfile.TemporaryDirectory(prefix="hybrid_", dir=ROOT) as d:
+        ranks = run_children(
+            [argv + ["--process-id", str(r)] for r in range(2)],
+            [os.path.join(d, f"rank{r}.json") for r in range(2)],
+            [{"counted": True, "replicas": True, "tp": True}] * 2)
+    ref = per_step["log"]
+    s_psi = ref.losses[:HYBRID_STEPS]
+    s_lim = ref.limits[:HYBRID_STEPS]
+    tol = [atol + rtol * abs(x) for x in s_psi]
+    clear = [not math.isfinite(lim) or abs(p - lim) > t
+             for p, lim, t in zip(s_psi, s_lim, tol)]
+    per_eval = launches_per_eval(zoo_base("transformer"))
+    out = dict(config=zoo_base("transformer").name, mesh={"data": 1,
+               "model": 2}, backend="gloo", steps=HYBRID_STEPS,
+               global_batch=8, single_device_losses=s_psi,
+               tolerance=[rtol, atol], clear_of_limit=clear)
+    ok = True
+    for g in ranks:
+        dev = [abs(a - b) for a, b in zip(g["losses"], s_psi)]
+        evals = g["steps"] + sum(g["sub_iters"])
+        launches = {k: g["device_launches"][k] for k in DP_KERNELS}
+        expect = {k: per_eval[k] * evals for k in DP_KERNELS}
+        check_s = [r["seconds"] for r in g["replicas"]]
+        wall = g["wall"]
+        tpb = g["tp"]["bytes"]
+        rank = dict(
+            losses=g["losses"], accelerated=g["accelerated"],
+            sub_iters=g["sub_iters"], evaluations=evals,
+            max_abs_psi_dev=max(dev),
+            psi_within=all(x <= t for x, t in zip(dev, tol)),
+            decisions_equal_where_clear=all(
+                a == b for a, b, c in zip(
+                    g["accelerated"], ref.accelerated[:HYBRID_STEPS], clear)
+                if c),
+            replicated_equal_every_step=(
+                len(g["replicas"]) == HYBRID_STEPS
+                and all(r["equal"] for r in g["replicas"])),
+            whole_params_equal=g["tp"]["whole_params"]["equal"],
+            launches=launches, expected_launches=expect,
+            launches_per_eval={k: launches[k] / evals for k in DP_KERNELS},
+            attn_local_heads=g["tp"]["attn_local_heads"],
+            params_held=g["tp"]["held"], params_total=g["params"],
+            split_leaves=g["tp"]["split"],
+            gathered_leaves=g["tp"]["gathered"],
+            peak_mem_gib=g["peak_bytes"] / 2**30,
+            s_per_step=(wall[-1] - wall[0] - sum(check_s[:-1]))
+            / (len(wall) - 1),
+            tp_sum_bytes_per_eval=tpb["sums"] / evals,
+            tp_gather_bytes_per_eval=tpb["gathers_per_eval"],
+            tp_bytes_per_eval=tpb["sums"] / evals + tpb["gathers_per_eval"],
+            reduce_bytes=g["reduce_bytes"])
+        out[f"rank{g['rank']}"] = rank
+        ok &= (rank["psi_within"] and rank["decisions_equal_where_clear"]
+               and rank["replicated_equal_every_step"]
+               and rank["whole_params_equal"]
+               and launches == expect
+               and all(v > 0 for v in launches.values())
+               and rank["attn_local_heads"] == {"wq": 8, "wk": 4})
+    same_logs = all(ranks[0][k] == ranks[1][k] for k in DP_KEYS)
+    out.update(logs_equal_across_ranks=same_logs,
+               seconds=time.perf_counter() - t0)
+    emit("hybrid", **out)
+    if not (ok and same_logs):
+        raise SystemExit("hybrid: the two tensor-parallel ranks failed a "
+                         "check (above)")
+    return {k: ranks[0]["device_launches"][k] for k in DP_KERNELS}
+
+
+def run_harness(module: str, args: list, ok_prefix: str,
+                timeout: int = 600) -> dict:
+    """``python -m MODULE ARGS`` on the card -> its last line's fields;
+    a nonzero exit or a line that does not end in ``-> OK`` fails."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", module] + args, cwd=ROOT,
+                       env=env, capture_output=True, text=True,
+                       timeout=timeout)
+    line = next((l for l in reversed(r.stdout.splitlines())
+                 if l.startswith(ok_prefix)), "")
+    out = {"args": args, "rc": r.returncode, "line": line,
+           "seconds": time.perf_counter() - t0}
+    if r.returncode != 0 or not line.endswith("-> OK"):
+        raise SystemExit(f"{module} {args}: rc {r.returncode}\n"
+                         f"{r.stdout[-3000:]}\n{r.stderr[-4000:]}")
+    return out
+
+
+def phase_hybrid_parity():
+    """``repro_torch.distributed.hybrid_parity`` on the card: two gloo ranks
+    (the bit-exact ``hybrid(1,1)``, ``hybrid(n,1)``, ``hybrid(1,n)`` legs,
+    ``sharded-tp(model=2)`` within 1e-5, ``data-parallel``; the fused legs
+    need NCCL and are left out there), then one NCCL rank (the fused
+    ``chunked`` and ``sched-fcpr`` legs, captured)."""
+    for procs, backend in ((2, "gloo"), (1, "nccl")):
+        emit("hybrid_parity", backend=backend, **run_harness(
+            "repro_torch.distributed.hybrid_parity",
+            ["--procs", str(procs), "--device", "cuda", "--backend", backend,
+             "--verbose"], "hybrid-parity"))
+
+
+def phase_multihost_parity():
+    """``repro_torch.distributed.multihost_parity`` on the card: four gloo
+    ranks as two nodes on ``(pod=2, data=2)`` against four on
+    ``(data=4)``, the reference's dim-6 problem, bit for bit (the per-step
+    leg; the fused legs need NCCL), the stripes' union the single-node
+    epoch."""
+    emit("multihost_parity", **run_harness(
+        "repro_torch.distributed.multihost_parity",
+        ["--procs", "4", "--device", "cuda", "--backend", "gloo",
+         "--verbose"], "multihost-parity"))
+
+
+def phase_zoo_parity():
+    """``repro_torch.train.zoo_parity`` on the card at the tiny tier: the
+    per-step against fused legs (CUDA graphs) bit for bit on the three
+    bodies, the frozen-LR control, ``sched-fcpr``, the hybrid ``(1, 1)``
+    leg over one NCCL rank, and the kernel leg: ``--kernels cuda`` against
+    ``reference`` in f32 within ``numerics.TOLERANCES``."""
+    emit("zoo_parity", **run_harness(
+        "repro_torch.train.zoo_parity",
+        ["--device", "cuda", "--procs", "1", "--verbose"], "zoo-parity"))
 
 
 # ---------------------------------------------------------------------------
@@ -2554,6 +2755,10 @@ def main():
     phase_dp(train["transformer"], chunked["transformer"])
     phase_dp2(train["transformer"])
     phase_dp_parity()
+    hybrid = phase_hybrid(train["transformer"])
+    phase_hybrid_parity()
+    phase_multihost_parity()
+    phase_zoo_parity()
     serve_phases()
     kernels = []
     for name, path, replaces in (
@@ -2567,8 +2772,9 @@ def main():
                         "source": f"src/repro_torch/kernels/csrc/{name}.cu",
                         "replaces": replaces, "design": DESIGN[name],
                         "launches": train[path]["launches"][name],
-                        "launches_by_path": {m: train[m]["launches"][name]
-                                             for m in MODELS},
+                        "launches_by_path": dict(
+                            {m: train[m]["launches"][name] for m in MODELS},
+                            hybrid_rank0=hybrid.get(name, 0)),
                         "max_abs_err": r["max_abs"], "ms": r["kernel_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],

@@ -87,10 +87,6 @@ class ISGDConfig:
     zeta: float | None = None    # Alg.2 constant step; default = current lr
 
 
-def _param_count(params) -> float:
-    return float(sum(w.numel() for w in params))
-
-
 @torch.no_grad()
 def _proximal_update(params, grads, w0, scale, zeta, epsilon, n_w):
     for w, g, w0i in zip(params, grads, w0):
@@ -100,15 +96,17 @@ def _proximal_update(params, grads, w0, scale, zeta, epsilon, n_w):
 
 
 def solve_subproblem(loss_and_grad, params, limit, entry_loss, lr,
-                     cfg: ISGDConfig):
+                     cfg: ISGDConfig, n_w: float | None = None):
     """Alg.2: minimize ½‖ψ(w)−limit‖² + ε/(2n_w)‖w−w0‖² by early-stopped
     constant-step descent, with w0 the weights on entry (after this step's
     base update). ``loss_and_grad(params) -> (psi, grads)``.
 
     The loop tests ``psi > limit`` on the ψ of the PREVIOUS evaluation,
     starting from ``entry_loss``, exactly as the JAX ``while_loop`` does.
+    ``n_w`` is the model's parameter count (default: that of ``params``).
     Returns (params, iterations_used); params are updated in place."""
-    n_w = _param_count(params)
+    if n_w is None:
+        n_w = LOCAL.param_count(params)
     zeta = cfg.zeta if cfg.zeta is not None else lr
     w0 = [w.detach().clone() for w in params]
     psi, used = entry_loss, 0
@@ -165,7 +163,8 @@ def isgd_step(rule: UpdateRule, cfg: ISGDConfig, loss_and_grad: Callable,
             def lg(w):
                 (l, _), g = loss_and_grad(w, batch)
                 return l, g
-            params, used = solve_subproblem(lg, params, limit, loss, lr, cfg)
+            params, used = solve_subproblem(lg, params, limit, loss, lr, cfg,
+                                            reduce_ctx.param_count(params))
 
     new_state = ISGDState(base=base_state, queue=queue,
                           iter=state.iter + 1,
@@ -272,7 +271,7 @@ def isgd_step_device(rule: UpdateRule, cfg: ISGDConfig,
     accelerate = loss > limit
 
     trips = state.trips
-    n_w = _param_count(params)
+    n_w = reduce_ctx.param_count(params)
     trips.psi.copy_(loss)
     trips.live.copy_(accelerate)
     trips.limit.copy_(limit)

@@ -9,7 +9,9 @@ every ``loss_and_grad`` evaluation through ``wrap_loss_and_grad``:
 
   * ``LocalReduce``: the identity, single-device semantics (the default);
   * ``AxisReduce``: the mean over the ranks of a ``torch.distributed``
-    group (the data-parallel engine, ``repro_torch.distributed``);
+    group (the data-parallel engine, ``repro_torch.distributed``); on a
+    ``(pod, data, model)`` mesh the group is the flattened ``(pod, data)``
+    ranks in pod-major order (``launch.mesh.mesh_group``);
   * ``StalenessReduce``: the async parameter-server regime (paper §6.2);
     loss and gradients stay local during the step and the server folds
     each worker's delta in with the staleness weight ``w(τ)`` defined
@@ -48,6 +50,30 @@ def shard_sum(stacked: torch.Tensor, out: Optional[torch.Tensor] = None):
     for r in range(1, stacked.shape[0]):
         out.add_(stacked[r])
     return out
+
+
+def gather_list(x: torch.Tensor, group) -> list:
+    """``x`` of every rank of ``group``, in rank order: the list form of
+    ``all_gather``, the one form gloo takes for CUDA tensors."""
+    import torch.distributed as dist
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return parts
+
+
+def axis_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``group`` (the model axis'
+    partial sums): gathered in rank order, added in f32 as ``shard_sum``
+    adds, cast back to ``x.dtype``; the same bits on every rank. Never an
+    ``all_reduce``. A one-rank group returns ``x``."""
+    import torch.distributed as dist
+    if dist.get_world_size(group) == 1:
+        return x
+    parts = gather_list(x, group)
+    out = parts[0].to(torch.float32, copy=True)
+    for p in parts[1:]:
+        out.add_(p.to(torch.float32))
+    return out.to(x.dtype)
 
 
 def shard_mean(stacked: torch.Tensor, out: Optional[torch.Tensor] = None):
@@ -96,6 +122,11 @@ class ReduceCtx:
     def sum_scalar(self, x):
         """Reduce a per-shard scalar by summation."""
         return x
+
+    def param_count(self, params) -> float:
+        """n_w of Alg. 2's proximal term: the parameter count of the model
+        (a sharded engine counts the whole tensors, not its shards)."""
+        return float(sum(w.numel() for w in params))
 
     def wrap_loss_and_grad(self, loss_and_grad: Callable) -> Callable:
         """``((loss, aux), grads)``-returning fn -> globally reduced variant.

@@ -25,9 +25,12 @@ Two layouts:
     the union of the stripes is the single-process epoch, row for row. A
     rank's rows ``[t·bs_local, (t+1)·bs_local)`` of its stripe are exactly
     its rows of the global batch t (``data_parallel.batch_sharding``), so
-    ring and host feeds give the same bits. ``relayout=False`` (the global
-    row order the reference's GSPMD strategy slices) waits for the hybrid
-    tensor-parallel slice and raises.
+    ring and host feeds give the same bits.
+  * **global** (``mesh``, ``relayout=False``): the hybrid engine's
+    tensor-parallel strategy, whose step takes the global batch and cuts
+    its rows itself (as the reference's GSPMD step slices the global row
+    order). Every rank holds the whole epoch in global row order on the
+    mesh's device type; batch t is rows ``[t*bs, (t+1)*bs)``.
 
 ``ring_or_prefetch`` is the byte-budget front door: an epoch whose share a
 replica (1/n of it on a sharded ring) fits ``byte_budget`` becomes a
@@ -88,11 +91,10 @@ class DeviceRing:
         self.mesh = mesh
         self.n_devices, self.local_block = 1, (0, 1)
         layout = dict(epoch_arrays)
-        if mesh is not None:
-            from repro_torch.launch.mesh import HYBRID_TP, local_data_block
-            if not relayout:
-                raise NotImplementedError(
-                    f"DeviceRing(relayout=False): {HYBRID_TP}")
+        if mesh is not None and not relayout:
+            device = mesh.device_type
+        elif mesh is not None:
+            from repro_torch.launch.mesh import local_data_block
             lo, hi, n_dev = local_data_block(mesh, axis)
             if batch_size % n_dev:
                 raise ValueError(f"batch {batch_size} is not divisible by "
@@ -128,11 +130,20 @@ def ring_or_prefetch(sampler, *, device="cuda", mesh=None, axis="data",
                      byte_budget: Optional[int] = DEFAULT_BYTE_BUDGET,
                      prefetch_depth: int = 2, relayout: bool = True):
     """A ``DeviceRing`` of ``sampler``'s epoch (this rank's stripe with
-    ``mesh``) when a replica's share fits ``byte_budget`` bytes (``None``:
-    always), else a ``PrefetchSampler`` over ``sampler`` (this rank's rows
-    with ``mesh``). The size check uses ``sampler.epoch_nbytes()``, so an
-    epoch over budget is never materialised on the device."""
+    ``mesh``; the whole epoch with ``relayout=False``) when a replica's
+    share fits ``byte_budget`` bytes (``None``: always), else a
+    ``PrefetchSampler`` over ``sampler`` (this rank's rows with ``mesh``,
+    the global batches with ``relayout=False``). The size check uses
+    ``sampler.epoch_nbytes()``, so an epoch over budget is never
+    materialised on the device."""
     n_dev = 1
+    if mesh is not None and not relayout:
+        device, mesh = mesh.device_type, None
+        if byte_budget is not None and sampler.epoch_nbytes() > byte_budget:
+            return PrefetchSampler(sampler, device=device,
+                                   depth=prefetch_depth)
+        return DeviceRing(sampler.epoch_arrays(), sampler.batch_size,
+                          device=device)
     if mesh is not None:
         from repro_torch.launch.mesh import local_data_block
         n_dev = local_data_block(mesh, axis)[2]

@@ -1,12 +1,11 @@
-"""Distributed ISGD (paper §6): the data-parallel engine over
-``torch.distributed`` (``make_hybrid_step`` on a pure-data mesh;
-``make_data_parallel_step`` is its alias), the reduction contexts, the
-data-parallel prefetcher and the N-rank parity check (``parity``).
+"""Distributed ISGD (paper §6): the hybrid DP × TP engine over
+``torch.distributed`` (``make_hybrid_step``: data parallel on a pure-data
+mesh, tensor parallel over a ``model`` axis; ``make_data_parallel_step``
+is its alias), the reduction contexts, the data-parallel prefetcher and
+the parity harnesses (``parity``, ``hybrid_parity``, ``multihost_parity``).
 
-Port of the pure data-parallel half of ``repro.distributed``. Not ported
-yet, each waiting for its slice: the hybrid tensor-parallel strategy and
-``hybrid_parity``, the asynchronous parameter server ``async_ps``, and
-``multihost_parity``.
+Port of ``repro.distributed``. Not ported yet, waiting for its slice: the
+asynchronous parameter server ``async_ps``.
 
 The reduction contexts live in ``repro_torch.core.reduce`` (so ``core``
 never imports this package) and are re-exported here. Exports resolve
@@ -36,7 +35,11 @@ _EXPORTS = {
     "tensor_axes": "repro_torch.distributed.data_parallel",
     "PrefetchSampler": "repro_torch.distributed.prefetch",
     "prefetched": "repro_torch.distributed.prefetch",
+    "TensorParallel": "repro_torch.distributed.data_parallel",
     "run_parity": "repro_torch.distributed.parity",
+    "run_hybrid_parity": "repro_torch.distributed.hybrid_parity",
+    "run_hybrid_parity_ranks": "repro_torch.distributed.hybrid_parity",
+    "run_multihost_parity": "repro_torch.distributed.multihost_parity",
 }
 
 __all__ = list(_EXPORTS)

@@ -1,14 +1,42 @@
-"""Data-parallel ISGD engine over ``torch.distributed`` (paper §6, Fig. 8).
+"""Hybrid DP × TP ISGD engine over ``torch.distributed`` (paper §6, Fig. 8).
 
-Port of the pure data-parallel half of ``repro.distributed.data_parallel``
-(its manual ``shard_map`` strategy). One process a rank, one rank a data
-shard: params and ISGD state are replicated, each rank takes its rows of
-the global batch (rank r: rows ``[r·b/n, (r+1)·b/n)``, the flat shard order
-``P("data")`` gives in the reference), and every ``loss_and_grad``
-evaluation is reduced by ``AxisReduce(axis, deterministic=True)`` over the
-mesh's group (``core.reduce``: one flat f32 bucket gathered in rank order
-and averaged locally). So the accelerate predicate and every Alg. 2 trip
-see the same ψ on every rank, and every rank computes the same new params.
+Port of ``repro.distributed.data_parallel``. One process a rank, one rank a
+device. The engine picks its strategy from the mesh at ONE point,
+:class:`MeshStrategy`:
+
+  * **data parallel** (every non-data axis of size 1: a ``("data",)``,
+    ``(data, model=1)`` or ``(pod, data, model=1)`` mesh; the reference's
+    manual ``shard_map`` strategy). Params and ISGD state are replicated,
+    each rank takes its rows of the global batch (flat data rank r: rows
+    ``[r·b/n, (r+1)·b/n)``, the flat pod-major shard order ``P(("pod",
+    "data"))`` gives in the reference), and every ``loss_and_grad``
+    evaluation is reduced by ``AxisReduce(axis, deterministic=True)`` over
+    the mesh's data group (``core.reduce``: one flat f32 bucket gathered in
+    rank order and averaged locally). So the accelerate predicate and every
+    Alg. 2 trip see the same ψ on every rank, every rank computes the same
+    new params, and a ``(pod=2, data=2)`` mesh gives a ``(data=4)`` mesh's
+    bits.
+  * **tensor parallel** (a ``model`` axis of size M > 1; the reference's
+    GSPMD strategy). The same ``make_step_core`` body runs on parameters
+    placed by ``launch.shardings.hybrid_params_placement``: each rank
+    updates its shards (the velocity is built from them, so it shards
+    alike), and an evaluation (``TensorParallelReduce``) gathers the
+    shards it needs (FSDP slices over ``data``; the parameters the model
+    does not split over ``model``), cuts the rank's rows of the global
+    batch, runs the loss under ``sharding.tensor_parallel`` (attention by
+    heads, the MLP by its ``d_ff``; ``TensorParallel``), takes the data
+    mean of the gradients with the data strategy's ``AxisReduce`` and keeps
+    the rank's slices. Alg. 2's n_w counts the whole tensors.
+
+The model-axis collectives are the port's own: list-form ``all_gather`` in
+rank order (``core.reduce.gather_list``), partial sums added in f32 in rank
+order (``core.reduce.axis_sum``) and cast back, inside autograd functions
+that pair each forward collective with its backward (``copy_in``: identity
+forward, sum backward, at a column-parallel input; ``reduce_out``: sum
+forward, identity backward, at a row-parallel output). Never
+``all_reduce``: every replicated value is the same bits on every rank.
+The kernels run unchanged on local tensors: ``flash_attention`` on the
+rank's H/M query and K/M KV heads, ``fused_xent`` on the gathered head.
 
 One engine, one step path: ``make_hybrid_step`` runs the body every other
 synchronous engine runs, ``train.trainer.make_step_core`` (the fused twin:
@@ -17,35 +45,40 @@ context. ``lr_fn`` reads ψ̄ of the incoming queue outside the step, the
 one-step lag of Alg. 1 line 19. ``make_data_parallel_step`` and
 ``make_chunked_data_parallel_step`` are the reference's aliases.
 
-The reference's second strategy, GSPMD for a mesh with a tensor-parallel
-axis of size > 1, waits for the hybrid tensor-parallel slice:
-``MeshStrategy`` raises ``MeshError`` naming it.
-
-Batches: ``step_fn`` takes this rank's rows. ``batch_sharding(mesh)`` cuts
-them from a global host batch, ``prefetched(sampler, mesh)``
-(``distributed.prefetch``) stages them, and a ``DeviceRing(mesh=)``
-(``data.device_ring``) holds this rank's stripe of the relaid-out epoch;
-the fused and scheduled engines take its ``.arrays`` and gather rows
-``[t·b_local, (t+1)·b_local)`` of it on the device.
+Batches: on the data-parallel strategy ``step_fn`` takes this rank's rows;
+on the tensor-parallel strategy it takes the global batch (the reference's
+GSPMD step does) and cuts the rank's rows itself, and its ring is a
+``DeviceRing(mesh=, relayout=False)`` in global row order. On the first,
+``batch_sharding(mesh)`` cuts the rows from a global host batch,
+``prefetched(sampler, mesh)`` (``distributed.prefetch``) stages them, and
+a ``DeviceRing(mesh=)`` (``data.device_ring``) holds this rank's stripe of
+the relaid-out epoch; the fused and scheduled engines take its ``.arrays``
+and gather rows ``[t·b_local, (t+1)·b_local)`` of it on the device.
 
 The fused engine on CUDA captures the collectives into its graph (the
-step's and each Alg. 2 trip's, the trips inside IF nodes). That needs a
-backend whose collective is device work: NCCL. A gloo collective is host
-work and cannot sit in a CUDA graph, so ``make_chunked_hybrid_step`` on a
+step's and each Alg. 2 trip's, the trips inside IF nodes; on the
+tensor-parallel strategy the parameter gathers and model-axis sums too).
+That needs a backend whose collective is device work: NCCL. A gloo
+collective is host work and cannot sit in a CUDA graph, so ``make_chunked_hybrid_step`` on a
 CUDA mesh over gloo raises at construction; it never runs per-step instead.
 The reduction's buffers and NCCL's communicator are made before any
 capture (``init_fn`` gathers once).
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from dataclasses import dataclass, field
+from typing import Any, Callable, Optional
+
+import torch
 
 from repro_torch.core import ISGDConfig
 from repro_torch.core import control
-from repro_torch.core.reduce import AxisReduce, tree_leaves
-from repro_torch.launch.mesh import (HYBRID_TP, MeshError, data_axes,
-                                     mesh_group)
+from repro_torch.core.reduce import (AxisReduce, ReduceCtx, axis_sum,
+                                     tree_leaves)
+from repro_torch.launch.mesh import (MeshError, data_axes, mesh_group,
+                                     model_group)
 from repro_torch.optim.base import UpdateRule
+from repro_torch.sharding.ctx import tensor_parallel
 
 
 def _norm_axes(mesh, axis) -> tuple:
@@ -67,8 +100,8 @@ def data_axis_size(mesh, axis=None) -> int:
 
 
 def tensor_axes(mesh, axis=None) -> tuple:
-    """Non-data mesh axes of size > 1, the tensor-parallel part. Empty for
-    every mesh this slice builds."""
+    """Non-data mesh axes of size > 1, the tensor-parallel part. Empty ⇒
+    the data-parallel strategy; non-empty ⇒ the tensor-parallel one."""
     data = set(_norm_axes(mesh, axis))
     names = mesh.mesh_dim_names or ()
     return tuple(a for i, a in enumerate(names)
@@ -103,17 +136,17 @@ def batch_sharding(mesh, axis=None) -> BatchShard:
 
 def replicate_to_mesh(tree, mesh):
     """Replicate a tree of tensors over the mesh: every rank's copy becomes
-    rank 0's, in place, one broadcast a tensor (the multi-process
-    ``device_put`` of the reference); returns the tree. Ranks that built
-    the same params from the same seed hold the same bits already; this
-    makes it so whatever they built."""
-    import torch
+    the mesh's first rank's, in place, one broadcast a tensor over all the
+    mesh's ranks (the multi-process ``device_put`` of the reference);
+    returns the tree. Ranks that built the same params from the same seed
+    hold the same bits already; this makes it so whatever they built.
+    Replicate whole tensors, before ``hybrid_params_placement`` shards
+    them."""
     import torch.distributed as dist
-    group = mesh_group(mesh)
-    src = dist.get_global_rank(group, 0)
+    src = int(mesh.mesh.flatten()[0])
     with torch.no_grad():
         for t in tree_leaves(tree):
-            dist.broadcast(t, src=src, group=group)
+            dist.broadcast(t, src=src)
     return tree
 
 
@@ -123,31 +156,155 @@ def replicated(mesh) -> Callable:
     return lambda tree: replicate_to_mesh(tree, mesh)
 
 
+class _CopyToModel(torch.autograd.Function):
+    """Column-parallel input: identity forward, sum over the model ranks
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.sum(g), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Row-parallel output: sum over the model ranks forward, identity
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        return tp.sum(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class TensorParallel:
+    """The model axis of an evaluation: its group and size, the two
+    autograd collectives the model calls (``copy_in``, ``reduce_out``),
+    and ``moved``, the bytes this rank has received in model-axis sums."""
+
+    def __init__(self, group):
+        import torch.distributed as dist
+        self.group = group
+        self.size = dist.get_world_size(group)
+        self.moved = 0
+
+    def sum(self, x):
+        """``core.reduce.axis_sum`` over the model ranks (no autograd)."""
+        self.moved += (self.size - 1) * x.numel() * x.element_size()
+        return axis_sum(x, self.group)
+
+    def copy_in(self, x):
+        return _CopyToModel.apply(x, self)
+
+    def reduce_out(self, x):
+        return _ReduceFromModel.apply(x, self)
+
+
+@dataclass(frozen=True)
+class TensorParallelReduce(ReduceCtx):
+    """The tensor-parallel strategy's evaluation (module doc): gather the
+    placed parameters (``launch.shardings.Placement``), cut the rank's
+    rows of the global batch, run the loss under the model split, take the
+    data mean with ``data`` (an ``AxisReduce``), keep the rank's slices.
+    ``bound`` holds the placement ``MeshStrategy.bind`` found."""
+
+    axis: Any = "data"
+    data: Any = None
+    tp: Any = None
+    rows: Any = None
+    bound: dict = field(default_factory=dict, compare=False, repr=False)
+
+    @property
+    def placement(self):
+        pl = self.bound.get("placement")
+        if pl is None:
+            raise RuntimeError("the tensor-parallel engine's init_fn was "
+                               "not called with placed params")
+        return pl
+
+    def param_count(self, params) -> float:
+        return self.placement.global_numel
+
+    def prime(self, tensors, device) -> None:
+        self.placement.gather_()
+        self.data.prime(self.placement.compute, device)
+        self.tp.sum(torch.zeros(1, device=device))
+
+    @property
+    def buffer_bytes(self) -> dict:
+        return self.data.buffer_bytes
+
+    def wrap_loss_and_grad(self, loss_and_grad: Callable) -> Callable:
+        def local(params, batch):
+            with tensor_parallel(self.tp):
+                return loss_and_grad(self.placement.compute, self.rows(batch))
+
+        mean = self.data.wrap_loss_and_grad(local)
+
+        def lg(params, batch):
+            self.placement.gather_()
+            (loss, aux), grads = mean(params, batch)
+            return (loss, aux), self.placement.local_grads(grads)
+
+        return lg
+
+
 class MeshStrategy:
-    """The strategy dispatch point, resolved once: ``reduce_ctx`` (what
-    ``make_step_core`` reduces ψ and the gradients with), ``axis`` and
-    ``tensor_axes``. Only the reference's manual strategy exists here; a
-    mesh with a tensor-parallel axis raises (``MeshError``)."""
+    """The strategy dispatch point, resolved once (module doc):
+    ``reduce_ctx`` (what ``make_step_core`` reduces ψ and the gradients
+    with: the data strategy's ``AxisReduce``, or the tensor-parallel
+    ``TensorParallelReduce`` around it), ``axis``, ``tensor_axes`` and
+    ``tensor_parallel`` (True on the second strategy)."""
 
     def __init__(self, mesh, axis=None):
         axes = _norm_axes(mesh, axis)
         self.mesh = mesh
         self.axis = axes[0] if len(axes) == 1 else axes
         self.tensor_axes = tensor_axes(mesh, axes)
-        if self.tensor_axes:
-            raise MeshError(f"mesh axes {self.tensor_axes} are tensor-"
-                            f"parallel: {HYBRID_TP}")
+        self.tensor_parallel = bool(self.tensor_axes)
         self.group = mesh_group(mesh)
-        self.reduce_ctx = AxisReduce(self.axis, deterministic=True,
-                                     group=self.group)
+        data = AxisReduce(self.axis, deterministic=True, group=self.group)
+        self.tp = None
+        if self.tensor_parallel:
+            if self.tensor_axes != ("model",):
+                raise MeshError(f"tensor-parallel axes {self.tensor_axes}: "
+                                f"only a 'model' axis is supported")
+            self.tp = TensorParallel(model_group(mesh))
+            self.reduce_ctx = TensorParallelReduce(
+                axis=self.axis, data=data, tp=self.tp,
+                rows=BatchShard(self.group.rank(), self.group.size()))
+        else:
+            self.reduce_ctx = data
 
     def backend(self) -> str:
         import torch.distributed as dist
         return dist.get_backend(self.group)
 
+    def bind(self, params) -> None:
+        """The tensor-parallel strategy reads the placement of ``params``
+        (``launch.shardings.hybrid_params_placement``'s local shards); a
+        mesh with a model axis never runs unplaced params replicated."""
+        if not self.tensor_parallel:
+            return
+        pl = getattr(params[0], "_repro_placement", None)
+        if pl is None or pl.mesh is not self.mesh \
+                or [id(t) for t in pl.local] != [id(t) for t in params]:
+            raise ValueError(
+                f"mesh axes {self.tensor_axes} are tensor-parallel: pass "
+                f"the local shards that launch.shardings."
+                f"hybrid_params_placement(mesh, params) returns for this "
+                f"mesh")
+        self.reduce_ctx.bound["placement"] = pl
+
     def prime(self, params) -> None:
-        """Make the reduction's buffers and the communicator now, before a
-        capture (``AxisReduce.prime``)."""
+        """Make the reduction's buffers and the communicators now, before
+        a capture (``AxisReduce.prime``)."""
         self.reduce_ctx.prime(params, params[0].device)
 
 
@@ -164,10 +321,12 @@ def make_hybrid_step(loss_fn: Callable, rule: UpdateRule,
     """``(init_fn, step_fn)`` with the ``make_train_step`` contract.
 
     ``step_fn(state, params, batch, lr=None) -> (state, params, metrics)``
-    where ``batch`` holds this rank's rows of the global batch (module
-    doc). Params and state are replicated (start them equal on every rank,
-    ``replicate_to_mesh``); the gradients are reduced before the base
-    update and ψ before the queue push, so every rank computes the same new
+    where ``batch`` holds this rank's rows of the global batch, or on the
+    tensor-parallel strategy the global batch (module doc). Params are
+    replicated (start them equal on every rank, ``replicate_to_mesh``), or
+    on the tensor-parallel strategy the local shards of
+    ``launch.shardings.hybrid_params_placement``; the gradients are
+    reduced before the base update and ψ before the queue push, so every rank computes the same new
     params. When ``lr`` is not passed, ``lr_fn`` reads ψ̄ from the queue of
     the incoming state. ``init_fn(params)`` also makes the reduction's
     buffers (one gather); ``init_fn.reduce_ctx`` is the strategy's
@@ -198,11 +357,13 @@ def make_hybrid_step(loss_fn: Callable, rule: UpdateRule,
             return core_step(state, params, batch, lr)
 
     def init_fn(params):
+        strat.bind(params)
         state = init_core(params)
         strat.prime(params)
         return state
 
     init_fn.reduce_ctx = strat.reduce_ctx
+    init_fn.strategy = strat
     return init_fn, step_fn
 
 
@@ -237,11 +398,13 @@ def make_chunked_hybrid_step(loss_fn: Callable, rule: UpdateRule,
         sched_seed=sched_seed)
 
     def init_fn(params):
+        strat.bind(params)
         state = init_core(params)
         strat.prime(params)
         return state
 
     init_fn.reduce_ctx = strat.reduce_ctx
+    init_fn.strategy = strat
     return init_fn, chunk_fn
 
 

@@ -79,7 +79,7 @@ class PrefetchSampler:
         return batch
 
 
-def prefetched(sampler, mesh=None, *, axis: str = "data", depth: int = 2,
+def prefetched(sampler, mesh=None, *, axis="data", depth: int = 2,
                sharding: Optional[Callable] = None,
                device=None) -> PrefetchSampler:
     """``sampler`` prefetched with the data-parallel batch layout of

@@ -1,33 +1,36 @@
 """Training meshes over the ``torch.distributed`` process group.
 
-Port of the data part of ``repro.launch.mesh``. A mesh is a
+Port of ``repro.launch.mesh``. A mesh is a
 ``torch.distributed.device_mesh.DeviceMesh``: one rank a process, one
-process a device. The data-parallel meshes are 1-D, ``("data",)``, over
-every rank of the group in rank order, which is the flat shard order the
-FCPR stripes and the deterministic reduction key on (rank r holds data
-shard r; ``local_data_block`` is ``(r, r + 1, world)``).
+process a device, ranks laid out in rank order (``arange(world)``
+reshaped to the mesh's shape). :func:`make_training_mesh` is the factory:
 
-The model-parallel meshes (``model > 1``: the ``(data, model)`` and
-``(pod, data, model)`` grids of the hybrid DP × TP engine) wait for the
-hybrid tensor-parallel slice and raise :class:`MeshError` naming it. With
-``model=1`` the reference's ``make_host_mesh``/``make_training_mesh`` have
-a trivial model axis; here they return the 1-D data mesh, whose data axes
-are the same.
+  * ``(data, model)`` when the pod axis is trivial;
+  * ``(pod, data, model)`` when ``pod > 1``: by default one pod a node,
+    ``pod = world_size // LOCAL_WORLD_SIZE`` where ``torchrun`` sets it
+    (else 1), so pod row p holds consecutive ranks, the ranks of node p.
 
-Building a mesh needs a process group; :func:`make_data_mesh` makes a
-one-rank group for a single process that has none
-(``launch.env.ensure_group``). Library code raises :class:`MeshError` (a
-``ValueError``); the launcher turns it into an exit code.
+The flat data order is pod-major, ``p·D + d``: the FCPR stripes
+(``data.device_ring``) and the deterministic reduction (``core.reduce``)
+key on it, so a ``(pod=2, data=2)`` mesh reproduces a ``(data=4)`` mesh
+bit for bit. ``mesh_group`` is the reduction's group over those ranks in
+that order: a mesh dimension's group where there is one data axis, a
+group made with ``dist.new_group`` over the flattened ``(pod, data)``
+ranks otherwise (every rank makes every model column's group, in the same
+order). ``model_group`` is the group of the tensor-parallel axis.
+
+:func:`make_data_mesh` is the 1-D ``("data",)`` mesh of the pure
+data-parallel engine. Building a mesh needs a process group; a single
+process that has none gets a one-rank group (``launch.env.ensure_group``).
+Library code raises :class:`MeshError` (a ``ValueError``); the launcher
+turns it into an exit code.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
-
-HYBRID_TP = ("the hybrid tensor-parallel slice (model > 1: a (data, model) "
-             "mesh and the GSPMD-style strategy of "
-             "repro.distributed.data_parallel) is not ported yet")
 
 
 class MeshError(ValueError):
@@ -35,10 +38,25 @@ class MeshError(ValueError):
 
 
 def data_axes(mesh) -> tuple:
-    """The data sub-axes of a training mesh, in reduction order:
-    ``("data",)`` here (``("pod", "data")`` once a pod axis exists)."""
+    """The data sub-axes of a training mesh, in reduction (pod-major flat)
+    order: ``("pod", "data")`` on a 3-D mesh, ``("data",)`` otherwise."""
     names = mesh.mesh_dim_names or ()
     return tuple(a for a in ("pod", "data") if a in names)
+
+
+def node_count(world: int) -> int:
+    """Nodes of the run: ``world // LOCAL_WORLD_SIZE`` where ``torchrun``
+    set it (and it divides), else 1."""
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", "0") or 0)
+    if local <= 0 or world % local:
+        return 1
+    return world // local
+
+
+def _device_mesh(device, shape: tuple, names: tuple):
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(torch.device(device).type, shape,
+                            mesh_dim_names=names)
 
 
 def make_data_mesh(device="cuda", backend: Optional[str] = None):
@@ -47,43 +65,105 @@ def make_data_mesh(device="cuda", backend: Optional[str] = None):
     device type (``cuda`` or ``cpu``); ``backend`` as in
     ``launch.env.ensure_group``."""
     import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.launch import env
     env.ensure_group(device, backend)
-    return init_device_mesh(torch.device(device).type,
-                            (dist.get_world_size(),),
-                            mesh_dim_names=("data",))
+    return _device_mesh(device, (dist.get_world_size(),), ("data",))
+
+
+def _check_pod_rows(mesh) -> None:
+    """Pod row p must hold consecutive ranks (one node's), or the FCPR
+    stripes would interleave rows across nodes."""
+    rows = mesh.mesh.reshape(mesh.shape[0], -1).tolist()
+    for p, row in enumerate(rows):
+        if row != list(range(row[0], row[0] + len(row))):
+            raise MeshError(
+                f"mesh ranks are not contiguous along the flattened (pod, "
+                f"data) order (pod row {p}: ranks {row}); the FCPR striping "
+                f"contract needs each pod's ranks in one contiguous block — "
+                f"build the mesh through make_training_mesh")
+
+
+def _flat_data_group(mesh):
+    """The group over the flattened (pod, data) ranks of this rank's model
+    column, in pod-major order; every rank makes every column's group."""
+    import torch.distributed as dist
+    grid = mesh.mesh.reshape(-1, mesh.shape[-1])          # (P·D, M)
+    mine = None
+    for m in range(grid.shape[1]):
+        ranks = grid[:, m].tolist()
+        group = dist.new_group(ranks)
+        if dist.get_rank() in ranks:
+            mine = group
+    return mine
 
 
 def make_training_mesh(model: int = 1, *, pod: Optional[int] = None,
                        device="cuda", backend: Optional[str] = None):
-    """The reference's mesh factory, its data part: ``model`` must be 1
-    (else :class:`MeshError`, naming the hybrid-TP slice) and ``pod`` 1 or
-    None; the mesh is ``make_data_mesh``'s."""
-    if model != 1:
-        raise MeshError(f"--model-parallel {model}: {HYBRID_TP}")
-    if pod not in (None, 1):
-        raise MeshError(f"pod={pod}: a pod axis comes with the multi-host "
-                        f"mesh of the hybrid tensor-parallel slice")
-    return make_data_mesh(device, backend)
+    """The mesh factory: ``model`` ranks a tensor-parallel group, ``pod``
+    (default: the node count; an explicit value must equal it) splits the
+    rest's outer dim, what is left is ``data``. ``pod == 1`` gives the 2-D
+    ``(data, model)`` mesh. Raises :class:`MeshError` on shapes that do not
+    divide."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import env
+    env.ensure_group(device, backend)
+    n = dist.get_world_size()
+    if model < 1 or n % model:
+        raise MeshError(
+            f"model-parallel degree must divide the device count: "
+            f"n={n} devices, M={model} (choose M from the divisors of {n})")
+    nodes = node_count(n)
+    if pod is None:
+        pod = nodes
+    elif pod != nodes:
+        raise MeshError(
+            f"pod={pod} must equal the node count {nodes} (one pod a node: "
+            f"world_size // LOCAL_WORLD_SIZE, or 1 without torchrun); a "
+            f"single node cannot fake a pod")
+    if pod < 1 or n % (pod * model):
+        raise MeshError(
+            f"pod axis must divide the non-model device count: n={n} "
+            f"devices, pod={pod}, M={model} (n must be a multiple of "
+            f"pod*M={pod * model})")
+    if pod == 1:
+        return _device_mesh(device, (n // model, model), ("data", "model"))
+    mesh = _device_mesh(device, (pod, n // (pod * model), model),
+                        ("pod", "data", "model"))
+    _check_pod_rows(mesh)
+    mesh._repro_data_group = _flat_data_group(mesh)
+    return mesh
 
 
 def make_host_mesh(model: int = 1, device="cuda",
                    backend: Optional[str] = None):
-    """``make_training_mesh(model, pod=1)``."""
+    """``make_training_mesh(model, pod=1)``: the 2-D ``(data, model)``
+    mesh of a single node."""
     return make_training_mesh(model, pod=1, device=device, backend=backend)
 
 
 def mesh_group(mesh):
-    """The process group of the mesh's data axis."""
+    """The process group of the mesh's data axes, ranks in flat pod-major
+    order."""
+    group = getattr(mesh, "_repro_data_group", None)
+    if group is not None:
+        return group
     return mesh.get_group(data_axes(mesh)[-1])
+
+
+def model_group(mesh):
+    """The process group of the tensor-parallel axis (None where the mesh
+    has no ``model`` axis)."""
+    if "model" not in (mesh.mesh_dim_names or ()):
+        return None
+    return mesh.get_group("model")
 
 
 def local_data_block(mesh, axis=None) -> tuple:
     """This process's block ``(lo, hi, total)`` of flat data-shard
-    positions: ``(r, r + 1, world)`` for rank r of the data axis. ``axis``
-    must be the mesh's data axis (or None)."""
+    positions: ``(r, r + 1, total)`` for flat position r (pod-major) of
+    this rank. ``axis`` must be the mesh's data axes (or None)."""
     axes = data_axes(mesh)
     if axis is not None and ((axis,) if isinstance(axis, str)
                              else tuple(axis)) != axes:

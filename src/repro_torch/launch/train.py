@@ -39,21 +39,31 @@ run's trajectory bit for bit (a resumed fused run may start mid-chunk).
 N steps into D with the atomic ``LATEST`` pointer that a serving process
 polls (``python -m repro_torch.launch.serve --watch --publish-dir D``).
 
-``--engine data-parallel`` (alias ``--data-parallel``; ``--engine
-hybrid``/``pjit`` with ``--model-parallel 1`` is the same engine) trains
-through the data-parallel engine (``repro_torch.distributed``): params
-replicated (rank 0's, broadcast), each rank on its rows of every batch, ψ
-and the gradients gathered and averaged in rank order every evaluation.
-Without process arguments it is one rank (a one-rank group: NCCL on the
-card, gloo on the CPU); ``--coordinator host:port --num-processes N
---process-id r`` (or ``torchrun``'s environment) makes N ranks, and
-``--dist-backend gloo`` lets them share one card. ``--chunk-steps``,
-``--device-ring``, ``--schedule``, ``--checkpoint-*`` (rank 0 writes, the
-others validate their replicas) and ``--obs-dir`` compose with it. A
-``--batch`` the ranks do not divide exits 1; ``--model-parallel > 1`` (the
-hybrid tensor-parallel slice) and ``--engine async-ps`` (the async-PS
-slice) exit naming their slice. Only rank 0 prints. Without ``--engine``
-the run is the single-device engines' as above.
+``--engine data-parallel`` (alias ``--data-parallel``) trains through the
+data-parallel engine (``repro_torch.distributed``) on the 1-D ``(data,)``
+mesh: params replicated (rank 0's, broadcast), each rank on its rows of
+every batch, ψ and the gradients gathered and averaged in rank order every
+evaluation. ``--engine hybrid`` (alias ``pjit``) trains on the ``(data,
+model)`` mesh of ``--model-parallel M`` (``(pod, data, model)`` across
+nodes), following the reference's ``run_sync``: with M = 1 it is the same
+data-parallel engine; with M > 1 the params are placed by
+``launch.shardings.hybrid_params_placement`` (attention by heads and the
+MLP by ``d_ff`` over ``model``, FSDP over ``data``), the activation rule
+table is installed (``sharding.rules``), each step takes the global batch
+(the ring in global row order) and each rank trains on its data rows with
+its model slices. Without process arguments it is one rank (a one-rank
+group: NCCL on the card, gloo on the CPU); ``--coordinator host:port
+--num-processes N --process-id r`` (or ``torchrun``'s environment) makes N
+ranks, and ``--dist-backend gloo`` lets them share one card.
+``--chunk-steps``, ``--device-ring``, ``--schedule``, ``--checkpoint-*``
+(rank 0 writes, the others validate their replicas; with M > 1 the
+checkpoint holds the whole tensors, gathered, and a resume takes each
+rank's part back) and ``--obs-dir`` compose with both. A ``--batch`` the
+data ranks do not divide exits 1, as does an M that does not divide the
+ranks (the mesh's ``MeshError``) or ``--model-parallel > 1`` with
+``--engine data-parallel``; ``--engine async-ps`` exits naming its slice.
+Only rank 0 prints. Without ``--engine`` the run is the single-device
+engines' as above.
 
 ``--obs-dir D`` writes the run's telemetry (``repro_torch.obs``) to
 ``D/metrics.p0.jsonl`` and ``D/summary.json``: the SPC control chart, step
@@ -87,6 +97,10 @@ the card the kernels are built before the clock starts.
       --model transformer --tier tiny --steps 6 --seq 64 --n-seqs 32 \\
       --engine data-parallel --coordinator 127.0.0.1:29511 \\
       --num-processes 2 --process-id 0      # and --process-id 1
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --model transformer --tier tiny --steps 6 --seq 64 --n-seqs 32 \\
+      --engine hybrid --model-parallel 2 --coordinator 127.0.0.1:29512 \\
+      --num-processes 2 --process-id 0      # and --process-id 1
 """
 from __future__ import annotations
 
@@ -102,14 +116,18 @@ from repro_torch.core import ISGDConfig, constant_lr
 from repro_torch.data import (DeviceRing, FCPRSampler, make_lm_tokens,
                               ring_or_prefetch)
 from repro_torch.device import resolve_device
-from repro_torch.distributed.data_parallel import (make_chunked_hybrid_step,
+from repro_torch.distributed.data_parallel import (data_axis_size,
+                                                   make_chunked_hybrid_step,
                                                    make_hybrid_step,
-                                                   replicate_to_mesh)
+                                                   replicate_to_mesh,
+                                                   tensor_axes)
 from repro_torch.distributed.prefetch import prefetched
 from repro_torch.kernels import KERNEL_CHOICES, build
 from repro_torch.launch import env as ENV
 from repro_torch.launch.env import p0print
-from repro_torch.launch.mesh import HYBRID_TP, make_data_mesh
+from repro_torch.launch.mesh import (MeshError, make_data_mesh,
+                                     make_training_mesh)
+from repro_torch.launch.shardings import hybrid_params_placement
 from repro_torch.models import build_model
 from repro_torch.models.api import frontend_embeds as api_frontend_embeds
 from repro_torch.obs import (ConsoleSink, JsonlSink, MetricsRecorder,
@@ -118,6 +136,7 @@ from repro_torch.obs import (ConsoleSink, JsonlSink, MetricsRecorder,
 from repro_torch.obs.console import is_coordinator, process_index
 from repro_torch.optim import RULES
 from repro_torch.sched.policies import schedule_from_spec
+from repro_torch.sharding import activation_sharding, rules
 from repro_torch.train import (TrainLog, host_metrics,
                                make_chunked_train_step,
                                make_scheduled_train_step, make_train_step)
@@ -209,15 +228,17 @@ def parse_args(argv=None):
                          "obs/psi_push, obs/accelerate)")
     ap.add_argument("--engine", default=None,
                     choices=["hybrid", "pjit", "data-parallel", "async-ps"],
-                    help="data-parallel: the data-parallel engine over the "
-                         "process group (hybrid/pjit with --model-parallel "
-                         "1 are the same engine; async-ps is not ported "
-                         "yet); omit for the single-device engines")
+                    help="data-parallel: the data-parallel engine on the "
+                         "(data,) mesh; hybrid/pjit: the DP x TP engine on "
+                         "the (data, model) mesh of --model-parallel (async-"
+                         "ps is not ported yet); omit for the single-device "
+                         "engines")
     ap.add_argument("--data-parallel", action="store_true",
                     help="alias for --engine data-parallel")
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="hybrid engine: ranks on the tensor-parallel axis "
-                         "(only 1 until the hybrid tensor-parallel slice)")
+                    help="hybrid engine: ranks on the tensor-parallel "
+                         "'model' axis (must divide the ranks; the rest "
+                         "form the data axes)")
     ENV.add_process_args(ap)
     return ap.parse_args(argv)
 
@@ -239,17 +260,26 @@ def engine_of(args):
         if args.model_parallel != 1:
             raise ValueError("--model-parallel needs --engine hybrid")
         return None
-    if args.model_parallel != 1:
-        raise ValueError(f"--model-parallel {args.model_parallel}: "
-                         f"{HYBRID_TP}")
+    if engine == "data-parallel" and args.model_parallel != 1:
+        raise ValueError("--model-parallel composes with --engine hybrid, "
+                         "not --engine data-parallel")
     return "data-parallel" if engine == "data-parallel" else "hybrid"
 
 
 def data_mesh(args, dev):
-    """The 1-D data mesh over the process group; exits 1 when the ranks do
-    not divide ``--batch``."""
-    mesh = make_data_mesh(dev.type, args.dist_backend)
-    n = mesh.size()
+    """The engine's mesh over the process group: 1-D ``(data,)`` for
+    ``data-parallel``, ``make_training_mesh(model=M)`` for ``hybrid``;
+    exits 1 when the mesh cannot be built or the data ranks do not divide
+    ``--batch``."""
+    try:
+        if engine_of(args) == "data-parallel":
+            mesh = make_data_mesh(dev.type, args.dist_backend)
+        else:
+            mesh = make_training_mesh(args.model_parallel, device=dev.type,
+                                      backend=args.dist_backend)
+    except MeshError as e:
+        raise SystemExit(f"error: {e}") from None
+    n = data_axis_size(mesh)
     if args.batch % n:
         raise SystemExit(f"--batch {args.batch} must be a multiple of the "
                          f"{n} data-parallel ranks (it is split across "
@@ -353,12 +383,14 @@ def _make_checkpointer(args, layout, recorder=None):
     return ckpts[0] if len(ckpts) == 1 else _TeeCheckpointer(ckpts)
 
 
-def _maybe_resume(args, ckpt, *, params_like, state_like, sched_like=None):
+def _maybe_resume(args, ckpt, *, params_like, state_like, sched_like=None,
+                  placement=None):
     """``--resume``: restore the newest complete checkpoint in the directory
     (atomic saves guarantee completeness) into the run's freshly built
-    params, state and policy state, in place. Returns the
-    ``EngineCheckpoint`` (its ``state`` carries a per-step state's
-    counters) or None."""
+    params, state and policy state, in place (with a tensor-parallel
+    ``placement``: into whole-tensor copies, then each rank's part back
+    into its shards). Returns the ``EngineCheckpoint`` (its ``state``
+    carries a per-step state's counters) or None."""
     if not (args.resume and ckpt is not None):
         return None
     latest = ckpt.latest()
@@ -366,9 +398,19 @@ def _maybe_resume(args, ckpt, *, params_like, state_like, sched_like=None):
         p0print(f"resume: no checkpoint under {ckpt.directory!r}; "
                 f"starting fresh")
         return None
+    local_state = state_like
+    if placement is not None:
+        params_like = placement.full(params_like)
+        state_like = state_like._replace(
+            base=placement.full_tree(state_like.base))
     ck = restore_engine(latest, params_like=params_like,
                         state_like=state_like, sched_like=sched_like,
                         layout=ckpt.layout, recorder=ckpt.recorder)
+    if placement is not None:
+        placement.load_full(ck.params)
+        placement.load_full_tree(ck.state.base, local_state.base)
+        ck = ck._replace(params=placement.local,
+                         state=ck.state._replace(base=local_state.base))
     ckpt.mark(ck.step)
     p0print(f"resume: restored {latest!r} at step {ck.step}")
     return ck
@@ -423,8 +465,14 @@ def _run(args, mesh, *, fused=None, profiler=None, on_step=None) -> dict:
     picks, one a step of the log; ``ranks``: the data-parallel ranks, 0
     for the single-device engines; ``reduce_bytes``: the bytes of the
     data-parallel reduction's buffers on this rank, its ``AxisReduce``'s
-    ``buffer_bytes``, else None). ``on_step(j, carry)``, if given, runs
-    after each per-step step (j the steps done)."""
+    ``buffer_bytes``, else None; ``placement``: the tensor-parallel
+    ``launch.shardings.Placement``, else None; ``local_params``: the
+    params the engine updated, this rank's shards where placed;
+    ``tp_bytes``: with a placement, the bytes this rank received in
+    model-axis sums over the run (``TensorParallel.moved``) and in
+    parameter gathers an evaluation, else None).
+    ``on_step(j, carry)``, if given, runs after each per-step step (j the
+    steps done)."""
     dev = resolve_device(args.device)
     engine = engine_of(args)
     k = args.chunk_steps
@@ -441,21 +489,38 @@ def _run(args, mesh, *, fused=None, profiler=None, on_step=None) -> dict:
     model.init(0)
     params = model.params()
     n_params = sum(p.numel() for p in params)
+    layout = layout_for(model.module)
     ranks = 0 if mesh is None else mesh.size()
-    local_batch = args.batch // max(ranks, 1)
+    n_data = 1 if mesh is None else data_axis_size(mesh)
+    tp = mesh is not None and bool(tensor_axes(mesh))
+    local_batch = args.batch // n_data
     kind = 'chunked' if fused else 'per-step'
     p0print(f"arch={cfg.name} engine="
             f"{kind if mesh is None else f'{engine} ({kind})'} "
             f"chunk_steps={k if fused else 1} device={dev} "
             f"kernels={args.kernels} precision={args.precision} "
             f"remat={args.remat}")
+    placement, constrain, resolved = None, contextlib.nullcontext(), None
     if mesh is not None:
         replicate_to_mesh(params, mesh)
-        p0print(f"mesh={{'data': {ranks}}} processes={ranks} "
+        shape = {a: n for a, n in zip(mesh.mesh_dim_names, mesh.shape)
+                 if a == "data" or n > 1}
+        p0print(f"mesh={shape} processes={ranks} "
                 f"backend={ENV.topology().backend} "
                 f"per_device_batch={local_batch}")
-    p0print(f"params: {n_params/1e6:.1f}M"
-            + ("" if mesh is None else " (replicated)"))
+    if tp:
+        # the tensor-parallel strategy: placed params and the activation
+        # rule table, as the reference's run_sync installs them
+        params, placement = hybrid_params_placement(mesh, model.module)
+        table = rules.activation_rule_table(mesh, args.batch)
+        resolved = rules.make_constrain(mesh, table)
+        constrain = activation_sharding(resolved)
+        held = sum(p.numel() for p in params)
+        p0print(f"params: {n_params/1e6:.1f}M (model/FSDP-sharded, "
+                f"{held/1e6:.1f}M a rank)")
+    else:
+        p0print(f"params: {n_params/1e6:.1f}M"
+                + ("" if mesh is None else " (replicated)"))
     if args.kernels == "cuda" and dev.type == "cuda":
         build.build_all()
 
@@ -472,7 +537,7 @@ def _run(args, mesh, *, fused=None, profiler=None, on_step=None) -> dict:
                 f"table)")
     obs = _make_observer(args, cfg, icfg, "chunked" if fused else "per-step",
                          table=schedule is not None and schedule.uses_table)
-    ckpt = _make_checkpointer(args, layout_for(model.module),
+    ckpt = _make_checkpointer(args, layout,
                               recorder=obs.recorder if obs is not None
                               else None)
     if dev.type == "cuda":
@@ -485,7 +550,8 @@ def _run(args, mesh, *, fused=None, profiler=None, on_step=None) -> dict:
         # the fused engine and every scheduled engine select on the device:
         # the ring is mandatory
         ring = DeviceRing(ring_epoch(cfg, sampler, args.batch, dev),
-                          args.batch, device=dev, mesh=mesh)
+                          args.batch, device=dev, mesh=mesh, axis=None,
+                          relayout=not tp)
     if mesh is not None:
         if fused:
             init_fn, step_fn = make_chunked_hybrid_step(
@@ -508,7 +574,9 @@ def _run(args, mesh, *, fused=None, profiler=None, on_step=None) -> dict:
     if schedule is not None:
         sched_state = schedule.init(icfg.n_batches, device=dev)
     ck = _maybe_resume(args, ckpt, params_like=params, state_like=state,
-                       sched_like=sched_state)
+                       sched_like=sched_state, placement=placement)
+    if placement is not None and ckpt is not None:
+        ckpt = _WholeTensors(ckpt, placement)
     start = 0
     if ck is not None:
         state, start = ck.state, ck.step
@@ -525,11 +593,12 @@ def _run(args, mesh, *, fused=None, profiler=None, on_step=None) -> dict:
     else:
         feed = sampler
         if args.device_ring:
-            feed = ring_or_prefetch(sampler, device=dev, mesh=mesh)
+            feed = ring_or_prefetch(sampler, device=dev, mesh=mesh,
+                                    axis=None, relayout=not tp)
             p0print(f"input: {type(feed).__name__}")
-        elif mesh is not None:           # this rank's rows, staged ahead
-            feed = prefetched(sampler, mesh, device=dev)
-        extra = frontend_embeds(cfg, local_batch, dev)
+        elif mesh is not None and not tp:  # this rank's rows, staged ahead
+            feed = prefetched(sampler, mesh, axis=None, device=dev)
+        extra = frontend_embeds(cfg, args.batch if tp else local_batch, dev)
         if extra:
             feed = WithExtras(feed, extra)
 
@@ -537,7 +606,8 @@ def _run(args, mesh, *, fused=None, profiler=None, on_step=None) -> dict:
             batch = {n: torch.as_tensor(v).to(dev) for n, v in feed(j).items()}
             *carry, m = step_fn(*carry, batch)
             return tuple(carry), m
-    with profiler if profiler is not None else contextlib.nullcontext():
+    with profiler if profiler is not None else contextlib.nullcontext(), \
+            constrain:
         t0 = time.perf_counter()
         if fused:
             carry, steps, log, picks = _drive_chunks(
@@ -563,6 +633,8 @@ def _run(args, mesh, *, fused=None, profiler=None, on_step=None) -> dict:
         p0print(f"obs: {args.obs_dir} "
                 f"spc_reconciled={final.get('reconciled', 'n/a')} "
                 f"accel_events={final['accel_events']}")
+    if resolved is not None:
+        p0print(f"activations: {resolved.seen}")
     p0print(f"done: {ran} steps in {dt:.1f}s "
             f"({dt/ran*1e3:.0f} ms/step) "
             f"accelerated={int(state.accel_count)} "
@@ -570,6 +642,10 @@ def _run(args, mesh, *, fused=None, profiler=None, on_step=None) -> dict:
     cuda = dev.type == "cuda"
     return {"log": log, "batch_idx": picks, "state": state,
             "sched_state": sched_state, "model": model, "seconds": dt,
+            "placement": placement, "local_params": carry[1],
+            "tp_bytes": None if placement is None else {
+                "sums": init_fn.strategy.tp.moved,
+                "gathers_per_eval": placement.gather_bytes()},
             "steps": steps, "start": start,
             "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda else None,
             "peak_reserved": torch.cuda.max_memory_reserved(dev) if cuda else None,
@@ -577,6 +653,30 @@ def _run(args, mesh, *, fused=None, profiler=None, on_step=None) -> dict:
             "chunk_steps": k if fused else 1, "obs": final, "ranks": ranks,
             "reduce_bytes": None if mesh is None
             else init_fn.reduce_ctx.buffer_bytes}
+
+
+class _WholeTensors:
+    """A checkpointer of a tensor-parallel run: every save gathers the
+    placed params and the rule state into whole tensors first, so the file
+    is the reference's format and every rank holds the same values (rank 0
+    writes them, the others validate)."""
+
+    def __init__(self, ckpt, placement):
+        self.ckpt, self.placement = ckpt, placement
+
+    def __getattr__(self, name):
+        return getattr(self.ckpt, name)
+
+    def maybe_save(self, step, *, state, params, sched_state=None):
+        ckpts = getattr(self.ckpt, "ckpts", [self.ckpt])
+        if not any(c.every and int(step) // c.every > c._last // c.every
+                   for c in ckpts):
+            return None               # the gather only where a save is due
+        pl = self.placement
+        return self.ckpt.maybe_save(
+            step, params=pl.full(params),
+            state=state._replace(base=pl.full_tree(state.base)),
+            sched_state=sched_state)
 
 
 def _print_step(j: int, log, **extra):

@@ -110,16 +110,23 @@ def _attend_chunked(q, k, v, *, causal: bool, window: Optional[int],
 
 
 def attn_forward(p, cfg, x, positions, *, window, use_rope=True,
-                 use_kernel=False, want_cache=False):
+                 use_kernel=False, want_cache=False, tp=None):
     """Full-sequence causal attention. x: (B, S, d) -> (B, S, d), or with
     ``want_cache`` (out, (k, v)): the keys after RoPE and the values, (B,
     S, K, hd), the layer's cache entry.
 
     ``use_kernel`` routes the attention core through ``gqa_flash`` (the
     CUDA kernel on the card); otherwise the chunked reference path runs.
-    The enc-dec decoder has no RoPE (``use_rope=False``)."""
+    The enc-dec decoder has no RoPE (``use_rope=False``). The head counts
+    are the weights' (H = wq's columns / hd): a tensor-parallel rank holds
+    H/M query and K/M KV heads, its input goes through ``tp.copy_in`` and
+    its ``wo`` partial sum through ``tp.reduce_out``."""
     B, S, _ = x.shape
-    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    H, K = p["wq"].shape[1] // hd, p["wk"].shape[1] // hd
+    split = tp is not None and H < cfg.num_heads
+    if split:
+        x = tp.copy_in(x)
     q = (x @ p["wq"]).reshape(B, S, H, hd)
     k = (x @ p["wk"]).reshape(B, S, K, hd)
     v = (x @ p["wv"]).reshape(B, S, K, hd)
@@ -132,6 +139,8 @@ def attn_forward(p, cfg, x, positions, *, window, use_rope=True,
     else:
         o = _attend_chunked(q, k, v, causal=True, window=window)
     out = o.reshape(B, S, H * hd) @ p["wo"]
+    if split:
+        out = tp.reduce_out(out)
     return (out, (k, v)) if want_cache else out
 
 

@@ -30,6 +30,16 @@ layer's ``ssd_scan`` run twice per loss-and-gradient: in the forward and
 in the recomputation. MLA, cross attention and the encoder run the plain
 ``_attend_chunked`` in either mode, as in the JAX package.
 
+Under the hybrid engine's tensor-parallel split
+(``repro_torch.distributed.data_parallel``) a dense attention layer holds
+its rank's heads (``wq``/``wk``/``wv`` by columns, ``wo`` by rows) and a
+SwiGLU or GELU MLP its rank's ``d_ff`` slice; the layers read the local
+widths off the weights and the split (``sharding.current_tp()``, read once
+a forward and handed down, so a recomputed layer sees it too) adds the
+row-parallel partial sums over the model ranks. ``constrain`` marks the
+reference's activation points: "hidden" after the embedding and after each
+layer, "logits" after the head, "decode_hidden" in a decode step.
+
 Serving caches follow the reference's layout: ``{"prefix": [entry per
 prefix layer], "blocks": (entry per block position, each tensor stacked
 over n_blocks on axis 0), "t": position}``; an entry is ``(k, v)`` (GQA),
@@ -55,6 +65,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
+from repro_torch.sharding import constrain, current_tp
 
 LOSS_CHUNK = 512
 MAX_SEQ = 4096                  # pos_embed rows of an enc-dec model by default
@@ -260,29 +271,38 @@ def init_params(model: Transformer, seed: int = 0,
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
-def _apply_mlp(layer: Layer, cfg, h, decode: bool = False):
+def _apply_mlp(layer: Layer, cfg, h, decode: bool = False, tp=None):
     """-> (y, aux); aux is 0.0 but for an MoE layer (``moe_decode`` for
-    one decode token a row)."""
+    one decode token a row). A dense MLP holding a ``d_ff`` slice runs
+    tensor-parallel over ``tp`` (module doc)."""
     kind = layer.spec.mlp
     if kind == "moe":
         return (M.moe_decode if decode else M.moe_forward)(layer.mlp, cfg, h)
+    split = tp is not None and layer.mlp["wi"].shape[1] < cfg.d_ff
+    if split:
+        h = tp.copy_in(h)
     if kind == "gelu2":
-        return L.gelu(h @ layer.mlp["wi"]) @ layer.mlp["wo"], 0.0
-    return L.mlp(layer.mlp, h), 0.0
+        y = L.gelu(h @ layer.mlp["wi"]) @ layer.mlp["wo"]
+    else:
+        y = L.mlp(layer.mlp, h)
+    return (tp.reduce_out(y) if split else y), 0.0
 
 
 def apply_layer(layer: Layer, cfg, x, positions, enc_out=None,
-                use_kernels: bool = False, want_cache: bool = False):
+                use_kernels: bool = False, want_cache: bool = False,
+                tp=None):
     """One decoder layer over the full sequence -> (x, aux), or with
     ``want_cache`` (x, cache entry, aux). ``use_kernels`` routes an
     ``attn`` mixer through ``gqa_flash`` and an ``ssm`` mixer through
-    ``ssd_chunked_kernel``; otherwise, and for MLA, the plain paths run."""
+    ``ssd_chunked_kernel``; otherwise, and for MLA, the plain paths run.
+    ``tp``: the tensor-parallel split of the evaluation (module doc)."""
     spec = layer.spec
     h = L.rms_norm(x, layer.ln1, cfg.norm_eps)
     if spec.mixer == "attn":
         o = L.attn_forward(layer.mixer, cfg, h, positions, window=spec.window,
                            use_rope=cfg.family != "encdec",
-                           use_kernel=use_kernels, want_cache=want_cache)
+                           use_kernel=use_kernels, want_cache=want_cache,
+                           tp=tp)
     elif spec.mixer == "mla":
         o = L.mla_forward(layer.mixer, cfg, h, positions,
                           want_cache=want_cache)
@@ -300,8 +320,10 @@ def apply_layer(layer: Layer, cfg, x, positions, enc_out=None,
             cache = cache + L.cross_kv(layer.cross, cfg, enc_out)
     aux = 0.0
     if spec.mlp != "none":
-        y, aux = _apply_mlp(layer, cfg, L.rms_norm(x, layer.ln2, cfg.norm_eps))
+        y, aux = _apply_mlp(layer, cfg, L.rms_norm(x, layer.ln2, cfg.norm_eps),
+                            tp=tp)
         x = x + y
+    x = constrain(x, "hidden")
     return (x, cache, aux) if want_cache else (x, aux)
 
 
@@ -363,7 +385,7 @@ def _embed(model: Transformer, tokens, frontend_embeds=None):
         x = torch.cat([frontend_embeds.to(x.dtype), x[:, n:]], dim=1)
     if cfg.family == "encdec":
         x = x + model.pos_embed[None, :tokens.shape[1]]
-    return x
+    return constrain(x, "hidden")
 
 
 def forward(model: Transformer, tokens, frontend_embeds=None, *, remat=True,
@@ -372,6 +394,7 @@ def forward(model: Transformer, tokens, frontend_embeds=None, *, remat=True,
     or with ``want_cache`` (hidden, (prefix_caches, block_caches), aux) in
     the reference's stacking (``stack_caches``)."""
     cfg = model.cfg
+    tp = current_tp()
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
     enc_out = None
     if cfg.family == "encdec":
@@ -381,13 +404,14 @@ def forward(model: Transformer, tokens, frontend_embeds=None, *, remat=True,
     for layer in model.layers:
         if want_cache:
             x, cache, aux = apply_layer(layer, cfg, x, positions, enc_out,
-                                        use_kernels, want_cache=True)
+                                        use_kernels, want_cache=True, tp=tp)
             caches.append(cache)
         elif remat and torch.is_grad_enabled():
             x, aux = checkpoint(apply_layer, layer, cfg, x, positions, enc_out,
-                                use_kernels, use_reentrant=False)
+                                use_kernels, False, tp, use_reentrant=False)
         else:
-            x, aux = apply_layer(layer, cfg, x, positions, enc_out, use_kernels)
+            x, aux = apply_layer(layer, cfg, x, positions, enc_out,
+                                 use_kernels, tp=tp)
         aux_total = aux_total + aux
     h = L.rms_norm(x, model.final_norm, cfg.norm_eps)
     if want_cache:
@@ -422,7 +446,7 @@ def logits_head(model: Transformer, h):
         col = torch.arange(cfg.padded_vocab, device=h.device)
         logits = torch.where(col < cfg.vocab_size, logits,
                              torch.full_like(logits, -1e30))
-    return logits
+    return constrain(logits, "logits")
 
 
 # ---------------------------------------------------------------------------
@@ -561,6 +585,7 @@ def decode_step(model: Transformer, cache: dict, tokens):
     if cfg.family == "encdec":
         t0 = int(t)
         x = x + model.pos_embed[None, t0:t0 + 1]
+    x = constrain(x, "decode_hidden")
     f, P = len(prefix_specs), len(block_specs)
     prefix = []
     for i, ce in enumerate(cache["prefix"]):

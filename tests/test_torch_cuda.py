@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card, against their plain versions, the
 chunked engine's CUDA graph against the eager per-step engine, the
-data-parallel engine on one NCCL rank, and the serving slot engine's
-decode graph against its eager decode.
+data-parallel engine on one NCCL rank, the hybrid and multi-host parity
+harnesses on the card, and the serving slot engine's decode graph against
+its eager decode.
 
 Every test here needs an NVIDIA GPU (``cuda`` marker) and skips without
 one. The file imports neither jax nor the JAX package, and runs on a
@@ -732,6 +733,27 @@ def test_resume_parity_on_card(cuda):
     for r in run_resume_parity(device="cuda"):
         assert r["ok"] and r["max_dev"] == 0.0, r
         assert r["accelerations"] > 0, r
+
+
+@pytest.mark.cuda
+def test_hybrid_and_multihost_parity_on_card(cuda):
+    """The hybrid parity matrix over two gloo ranks sharing the card (its
+    fused legs need NCCL and are left out) and over one NCCL rank (the
+    fused legs captured), and the pod mesh against the flat one over four
+    gloo ranks, as ``chip_smoke.py``'s phases run them."""
+    from repro_torch.distributed.hybrid_parity import run_hybrid_parity_ranks
+    from repro_torch.distributed.multihost_parity import run_multihost_parity
+    r = run_hybrid_parity_ranks(2, device="cuda", backend="gloo",
+                                timeout=300)
+    assert r["ok"] and r["ranks_agree"] and r["accelerations"] > 0, r
+    assert len(r["omitted"]) == 4
+    assert r["legs"]["sharded-tp(model=2)"]["max_param"] <= 1e-5
+    r = run_hybrid_parity_ranks(1, device="cuda", backend="nccl",
+                                timeout=300)
+    assert r["ok"] and not r["omitted"], r
+    r = run_multihost_parity(procs=4, pods=2, device="cuda", backend="gloo",
+                             timeout=300)
+    assert r["ok"] and r["omitted"] == ["chunked", "sched"], r
 
 
 @pytest.mark.cuda

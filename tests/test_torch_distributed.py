@@ -368,10 +368,12 @@ def test_world_one_equals_single_device_bit_for_bit():
 
 
 def test_meshes_name_the_hybrid_slice_and_shard_rows():
-    with pytest.raises(MeshError, match="hybrid tensor-parallel"):
-        make_host_mesh(model=2, device="cpu")
+    # a model axis that does not divide the ranks raises with the
+    # reference's wording; model=1 is the reference's 2-D (data, model) mesh
     with env.local_group("cpu"):
+        with pytest.raises(MeshError, match="n=1 devices, M=2"):
+            make_host_mesh(model=2, device="cpu")
         mesh = make_host_mesh(model=1, device="cpu")
         cut = batch_sharding(mesh)
         assert cut.rows(8) == slice(0, 8)
-        assert mesh.mesh_dim_names == ("data",)
+        assert mesh.mesh_dim_names == ("data", "model")

@@ -33,7 +33,12 @@ def test_port_imports_no_jax_and_no_repro():
         "        'repro_torch.distributed.data_parallel',\n"
         "        'repro_torch.distributed.prefetch',\n"
         "        'repro_torch.distributed.parity',\n"
-        "        'repro_torch.launch.env', 'repro_torch.launch.mesh'] + [\n"
+        "        'repro_torch.launch.env', 'repro_torch.launch.mesh',\n"
+        "        'repro_torch.launch.shardings', 'repro_torch.sharding',\n"
+        "        'repro_torch.sharding.rules', 'repro_torch.sharding.ctx',\n"
+        "        'repro_torch.distributed.hybrid_parity',\n"
+        "        'repro_torch.distributed.multihost_parity',\n"
+        "        'repro_torch.train.zoo_parity'] + [\n"
         "    'repro_torch.configs.' + a for a in ARCH_IDS]\n"
         "print('MISSING', [m for m in need if m not in sys.modules])\n"
         "print('BAD', bad, 'N', n)\n")

@@ -7,8 +7,10 @@ spelling of the engine, in this process) equals the single-device run bit
 for bit, log and params, and leaves no process group behind; rank 1
 prints nothing; rank 0
 writes the checkpoints, rank 1 validates them, and both resume from them;
-a ``--batch`` the ranks do not divide exits 1; ``--model-parallel 2`` and
-``--engine async-ps`` exit naming their slice. Every process is joined
+a ``--batch`` the ranks do not divide exits 1; ``--model-parallel 2`` on
+one rank exits with the mesh's ``MeshError`` (the reference's wording),
+with ``--engine data-parallel`` with the reference's refusal, and
+``--engine async-ps`` exits naming its slice. Every process is joined
 with a timeout."""
 import os
 import socket
@@ -133,9 +135,11 @@ def test_batch_not_divisible_by_the_ranks_exits_1():
 
 @pytest.mark.parametrize("args,match", [
     (["--engine", "hybrid", "--model-parallel", "2"],
-     "hybrid tensor-parallel slice"),
+     "model-parallel degree must divide the device count: n=1 devices, "
+     "M=2"),
     (["--engine", "data-parallel", "--model-parallel", "2"],
-     "hybrid tensor-parallel slice"),
+     "--model-parallel composes with --engine hybrid, not --engine "
+     "data-parallel"),
     (["--engine", "async-ps"], "async-PS slice")],
     ids=["hybrid-tp", "data-parallel-tp", "async-ps"])
 def test_engines_not_ported_name_their_slice(args, match, capsys):
