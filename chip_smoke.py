@@ -77,8 +77,24 @@ and 1 ``fused_xent`` an evaluation), with s/step, peak and the bytes the
 tensor-parallel collectives move; ``hybrid_parity``, ``multihost_parity``
 and ``zoo_parity`` run the three harnesses on the card (gloo ranks, and
 one NCCL rank for the fused legs; the zoo's kernel leg is ``--kernels
-cuda`` against ``reference``). Then serving (``repro_torch.serve``,
-which runs the plain paths, as the reference serves without its kernels):
+cuda`` against ``reference``). Then the asynchronous parameter server
+(``repro_torch.distributed.async_ps``, ``--engine async-ps``; worker
+threads of one process, every thread on the default stream):
+``async_ps`` trains ``paper-transformer`` base with one worker at
+staleness 0 for 12 pushes, bit for bit the ``train`` run (log, final
+params and velocity, device-counted launches), ms a push beside its
+ms/step; ``async_ps2`` with two workers at staleness 1, every τ within 3,
+each worker on its stripe ``k·2 + w``, each pulled snapshot checksummed
+on the device at its pull and when its push lands (equal: no thread wrote
+it); ``async_resume`` kills the one-worker run at its push-6 checkpoint
+and resumes it in a fresh process, bit for bit, the final checkpoint
+array by array; ``async_faults`` runs ``paper-transformer`` tiny with
+``--verify-pushes`` in four fresh processes at once (an elastic run
+surviving a crash and a hang past the deadline, re-striped; corrupt and
+transient pushes retried bit for bit; a non-elastic stall exiting with
+``WorkerStalled``); ``async_parity`` runs the harness on the card. Then
+serving (``repro_torch.serve``, which runs the plain paths, as the
+reference serves without its kernels):
 ``serve`` drives ``paper-transformer`` base through the serve launcher's
 continuous engine (48 mixed-length requests on 16 slots of 1024
 positions) and holds the decode step's CUDA graph, captured once, bit for
@@ -92,9 +108,10 @@ against eager; the SSM against one-shot; the MoE's capacity drops);
 ``serve_arch`` holds each reduced architecture's cached decode against
 its full forward; ``train_and_serve`` serves while a trainer child
 publishes snapshots, hot-swapping them between decode steps.
-``--serve-only`` runs the device line and the serving phases alone. Each
-phase prints one JSON line; the last two lines are the kernels summary
-and ``{"ok": true, "device": {...}}``.
+``--serve-only`` runs the device line and the serving phases alone,
+``--async-only`` the device line, the build, ``train`` and the async
+phases. Each phase prints one JSON line; the last two lines are the
+kernels summary and ``{"ok": true, "device": {...}}``.
 
 Nothing is caught: any failure exits nonzero before the last line. Without
 a CUDA device, or outside a checkout of the repository, it exits nonzero
@@ -110,6 +127,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from functools import partial
 
@@ -562,7 +580,9 @@ def phase_train(model: str) -> dict:
     if launches != expect:
         raise SystemExit(f"kernel launches {launches} != expected {expect}")
     return {"launches": launches, "step1_loss": log.losses[0], "log": log,
-            "per_eval": launches_per_eval(cfg)}
+            "per_eval": launches_per_eval(cfg), "peak_bytes": res["peak_bytes"],
+            # the final params and velocity, for async_ps
+            "final_sum": engine_checksum(res["model"].params(), state.base)}
 
 
 def launches_per_eval(cfg) -> dict:
@@ -1490,7 +1510,8 @@ def launch_child(out: str, spec: dict, argv: list):
     (``device_counted``, a fused run); ``replicas`` checksums every rank's
     replica after each step (``ReplicaCheck``, kept out of the walls and
     the peak); ``probe`` records every reduction's loss slots
-    (``probe_gathers``, a per-step run)."""
+    (``probe_gathers``, a per-step run); ``final_sum`` the device checksum
+    of the final params and rule state (``engine_checksum``)."""
     torch.backends.cuda.matmul.allow_tf32 = False   # as the parent runs
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels.flash_attention import flash_attention
@@ -1532,7 +1553,8 @@ def launch_child(out: str, spec: dict, argv: list):
                    "start": res["start"], "steps": res["steps"],
                    "seconds": res["seconds"],
                    "capture_seconds": res["capture_seconds"],
-                   **sequences(res), **{k: getattr(log, k) for k in DP_KEYS},
+                   **sequences(res),
+                   **{k: getattr(log, k) for k in DP_KEYS + ("psi_std",)},
                    "wall": log.wall,
                    "launches": {k: w.launches for k, w in wrappers.items()},
                    "device_launches": device,
@@ -1541,7 +1563,15 @@ def launch_child(out: str, spec: dict, argv: list):
                    "reduce_bytes": res["reduce_bytes"],
                    "params": res["params"],
                    "replicas": None if check is None else check.rows,
-                   "gathers": gathers, "tp": tp}, fh)
+                   "gathers": gathers, "tp": tp,
+                   # an async-PS run's push records and events
+                   "records": [{k: r[k] for k in ("worker", "tau", "batch",
+                                                  "version")}
+                               for r in res.get("records", [])],
+                   "events": res.get("events", []),
+                   "final_sum": engine_checksum(
+                       res["local_params"], res["state"].base)
+                   if spec.get("final_sum") else None}, fh)
 
 
 def run_children(argvs: list, outs: list, specs: list) -> list:
@@ -2118,6 +2148,336 @@ def phase_zoo_parity():
     emit("zoo_parity", **run_harness(
         "repro_torch.train.zoo_parity",
         ["--device", "cuda", "--procs", "1", "--verbose"], "zoo-parity"))
+
+
+# ---------------------------------------------------------------------------
+# the asynchronous parameter server (repro_torch.distributed.async_ps): no
+# kernel of its own; each worker's evaluation runs the same two kernels
+# ---------------------------------------------------------------------------
+ASYNC_PUSHES = 12
+ASYNC_KILL = 6                             # async_resume: the checkpoint's push
+ASYNC_KEYS = ("losses", "psi_bar", "psi_std", "limits", "accelerated",
+              "sub_iters")
+
+
+def async_args(workers: int, staleness: int, *extra) -> list:
+    """The ``train`` phase's run through ``--engine async-ps``."""
+    return train_args("transformer", ASYNC_PUSHES) + [
+        "--engine", "async-ps", "--workers", str(workers),
+        "--max-staleness", str(staleness), *extra]
+
+
+def engine_checksum(params, base) -> int:
+    """``replica_checksum`` of a run's params and rule state."""
+    from repro_torch.core.reduce import tree_leaves
+    return int(replica_checksum(list(params) + tree_leaves(base)))
+
+
+def phase_async_ps(per_step: dict) -> dict:
+    """One worker at staleness 0 through ``--engine async-ps`` on
+    ``paper-transformer`` base, 12 pushes, in this process: bit for bit
+    the per-step run of ``train`` (every loss, ψ̄, σ, limit, accelerate
+    decision and sub_iters; the final params and velocity by device
+    checksum), with the same launches of ``fused_xent`` and
+    ``flash_attention`` (counted on the device from after the warm-up).
+    ms a push beside the per-step ms/step of the same call, and the peak
+    (server, one replica, the pulled snapshot, the activations). -> the
+    run's result, with its device launches."""
+    from repro_torch.launch import train as launcher
+    t0 = time.perf_counter()
+    args = launcher.parse_args(async_args(1, 0))
+    res, launches = device_counted(lambda p: launcher.run(args, profiler=p))
+    log, ref = res["log"], per_step["log"]
+    evals = res["steps"] + int(res["state"].sub_iters)
+    per_eval = launches_per_eval(zoo_base("transformer"))
+    got = {k: launches[k] for k in DP_KERNELS}
+    same = {k: getattr(log, k) == getattr(ref, k) for k in ASYNC_KEYS}
+    final = engine_checksum(res["model"].params(), res["state"].base)
+    out = dict(config=zoo_base("transformer").name, workers=1,
+               max_staleness=0, pushes=res["steps"], bit_exact=all(
+                   same.values()), equal=same,
+               final_state_equal=final == per_step["final_sum"],
+               losses=log.losses, accelerated=log.accelerated,
+               sub_iters=log.sub_iters,
+               taus=[r["tau"] for r in res["records"]],
+               launches=got,
+               expected_launches={k: per_eval[k] * evals for k in DP_KERNELS},
+               per_step_launches={k: per_step["launches"][k]
+                                  for k in DP_KERNELS},
+               ms_per_push=ms_after(log, 1),
+               per_step_ms_per_step=ms_after(ref, 1),
+               warmup_seconds=res["warmup_seconds"],
+               peak_mem_gib=res["peak_bytes"] / 2**30,
+               per_step_peak_gib=per_step["peak_bytes"] / 2**30,
+               seconds=time.perf_counter() - t0)
+    emit("async_ps", **out)
+    if not (out["bit_exact"] and out["final_state_equal"]):
+        raise SystemExit(f"async_ps: the one-worker run differs from the "
+                         f"per-step run: {same}, final state equal "
+                         f"{out['final_state_equal']}")
+    if got != out["expected_launches"] or got != out["per_step_launches"]:
+        raise SystemExit(f"async_ps: launches {got}, expected "
+                         f"{out['expected_launches']}")
+    if res["steps"] != ASYNC_PUSHES or any(out["taus"]):
+        raise SystemExit(f"async_ps: {res['steps']} pushes, taus "
+                         f"{out['taus']}")
+    return dict(res, device_launches=launches)
+
+
+class SnapshotSums:
+    """``snapshot_hook`` of an async run: each pulled snapshot's device
+    checksum (params and base, ``replica_checksum``) when it is pulled and
+    again when its push has landed; the sums stay on the device until
+    ``rows``. Equal sums: nobody wrote the snapshot in between."""
+
+    def __init__(self):
+        self.sums, self.lock = {}, threading.Lock()
+
+    def __call__(self, event, wid, k, snap):
+        from repro_torch.core.reduce import tree_leaves
+        s = replica_checksum(list(snap.params) + tree_leaves(snap.base))
+        with self.lock:
+            self.sums.setdefault((wid, k), {})[event] = (snap.version, s)
+
+    def rows(self) -> list:
+        return [{"worker": w, "step": k, "version": v["pull"][0],
+                 "pull": int(v["pull"][1]), "push": int(v["push"][1])}
+                for (w, k), v in sorted(self.sums.items())]
+
+
+def phase_async_ps2(per_step: dict):
+    """Two workers at staleness 1 (``--staleness-decay inverse``) on
+    ``paper-transformer`` base, 12 pushes (6 a worker), in this process,
+    both threads on the default stream: every τ recorded and within
+    (2·1+1)·(2−1) = 3; the server at version 12; each worker's pushes the
+    global batches k·2 + w; every ψ finite and the walls marked estimated;
+    the launches counted on the device, one evaluation a push plus the
+    trips. Each snapshot is checksummed on the device at its pull and
+    again when its push lands (``SnapshotSums``): equal, so no thread
+    wrote it. s a push (the checksums included), τ, the folds taken (the
+    pushes with τ > 0) and the peak."""
+    from repro_torch.launch import train as launcher
+    t0 = time.perf_counter()
+    args = launcher.parse_args(async_args(2, 1, "--staleness-decay",
+                                          "inverse"))
+    sums = SnapshotSums()
+    res, launches = device_counted(
+        lambda p: launcher.run(args, profiler=p, snapshot_hook=sums))
+    recs, log = res["records"], res["log"]
+    taus = [r["tau"] for r in recs]
+    bound = (2 * 1 + 1) * (2 - 1)
+    stripes = {w: [r["batch"] for r in recs if r["worker"] == w]
+               for w in (0, 1)}
+    rows = sums.rows()
+    evals = res["steps"] + int(res["state"].sub_iters)
+    per_eval = launches_per_eval(zoo_base("transformer"))
+    got = {k: launches[k] for k in DP_KERNELS}
+    out = dict(config=zoo_base("transformer").name, workers=2,
+               max_staleness=1, decay="inverse", pushes=len(recs),
+               version=res["steps"], taus=taus,
+               mean_tau=sum(taus) / len(taus), max_tau=max(taus),
+               tau_bound=bound, folds=sum(t > 0 for t in taus),
+               stripes=stripes,
+               stripes_ok=all(stripes[w] == [k * 2 + w for k in range(6)]
+                              for w in (0, 1)),
+               losses=log.losses, workers_in_order=[r["worker"] for r in recs],
+               accelerated=log.accelerated, sub_iters=log.sub_iters,
+               psi_finite=all(math.isfinite(x) for x in log.losses),
+               walls_estimated=all(log.wall_est),
+               snapshots=len(rows),
+               snapshots_unwritten=all(r["pull"] == r["push"] for r in rows),
+               launches=got,
+               expected_launches={k: per_eval[k] * evals for k in DP_KERNELS},
+               s_per_push=(log.wall[-1] - log.wall[0]) / (len(recs) - 1),
+               per_step_s_per_step=ms_after(per_step["log"], 1) / 1e3,
+               warmup_seconds=res["warmup_seconds"],
+               peak_mem_gib=res["peak_bytes"] / 2**30,
+               seconds=time.perf_counter() - t0)
+    emit("async_ps2", **out)
+    ok = (max(taus) <= bound and res["steps"] == ASYNC_PUSHES
+          and len(recs) == ASYNC_PUSHES and out["stripes_ok"]
+          and out["psi_finite"] and out["walls_estimated"]
+          and len(rows) == ASYNC_PUSHES and out["snapshots_unwritten"]
+          and got == out["expected_launches"])
+    if not ok:
+        raise SystemExit("async_ps2: a check failed (above)")
+
+
+def phase_async_resume(ref: dict):
+    """Kill and resume the one-worker run, each leg a fresh process of the
+    launcher: ``--checkpoint-every 6 --steps 6`` (the server writes the
+    checkpoint under its lock at version 6), then ``--resume --steps 12``.
+    The resumed pushes (loss, ψ̄, σ, limit, decision, sub_iters) must equal
+    pushes 7–12 of ``async_ps``'s uninterrupted run, and the checkpoint the
+    resumed run writes at version 12 must hold that run's final params,
+    ISGD state and server clocks bit for bit (array by array against
+    ``pack_engine_state``). The checkpoint's bytes and the save and
+    restore seconds come from the legs' ``--obs-dir`` events. The
+    directory is removed afterwards."""
+    import tempfile
+
+    from repro_torch.obs import read_jsonl
+    from repro_torch.train import checkpoints as CK
+    t0 = time.perf_counter()
+    base = async_args(1, 0, "--checkpoint-every", str(ASYNC_KILL))
+    with tempfile.TemporaryDirectory(prefix="async_resume_", dir=ROOT) as d:
+        ck = os.path.join(d, "ckpt")
+        legs = []
+        for i, extra in enumerate((["--steps", str(ASYNC_KILL)],
+                                   ["--steps", str(ASYNC_PUSHES),
+                                    "--resume"])):
+            obs = os.path.join(d, f"obs{i}")
+            legs.append(run_child(base + extra + ["--checkpoint-dir", ck,
+                                                  "--obs-dir", obs],
+                                  os.path.join(d, f"log{i}.json")))
+            legs[-1]["ckpt_events"] = [
+                dict(r["data"], event=r["name"])
+                for r in read_jsonl(os.path.join(obs, "metrics.p0.jsonl"))
+                if r["kind"] == "event" and r["name"].startswith("checkpoint.")]
+        saved = sorted(os.listdir(ck))
+        with np.load(os.path.join(ck, f"ckpt_{ASYNC_PUSHES:08d}.npz")) as f:
+            got = {k: f[k] for k in f.files if k != "__meta__"}
+            meta_server = json.loads(str(f["__meta__"]))["extra"]["server"]
+        model = ref["model"]
+        tree, _ = CK.pack_engine_state(
+            params=model.params(), state=ref["state"], step=ASYNC_PUSHES,
+            layout=CK.layout_for(model.module))
+        want = CK.tree_arrays(tree)
+        differ = sorted(k for k in set(want) | set(got)
+                        if k not in want or k not in got
+                        or not np.array_equal(want[k], got[k]))
+        kill_bytes = os.path.getsize(os.path.join(
+            ck, f"ckpt_{ASYNC_KILL:08d}.npz"))
+    first, resumed = legs
+    log = ref["log"]
+    same = {k: resumed[k] == getattr(log, k)[ASYNC_KILL:] for k in ASYNC_KEYS}
+    save = next(e for e in first["ckpt_events"]
+                if e["event"] == "checkpoint.save")
+    restore = next(e for e in resumed["ckpt_events"]
+                   if e["event"] == "checkpoint.restore")
+    out = dict(config=zoo_base("transformer").name, kill_push=ASYNC_KILL,
+               resumed_from=resumed["start"], last_push=resumed["steps"],
+               saved=saved, server=meta_server, log_after_kill_equal=same,
+               losses_after_kill=resumed["losses"],
+               accelerated_after_kill=resumed["accelerated"],
+               state_arrays=len(want), state_arrays_differing=differ,
+               checkpoint_bytes=kill_bytes, save_seconds=save["seconds"],
+               restore_seconds=restore["seconds"],
+               seconds=time.perf_counter() - t0)
+    emit("async_resume", **out)
+    if (resumed["start"], resumed["steps"]) != (ASYNC_KILL, ASYNC_PUSHES):
+        raise SystemExit(f"async_resume: ran {resumed['start']}.."
+                         f"{resumed['steps']}")
+    if not all(same.values()) or differ:
+        raise SystemExit(f"async_resume: not bit for bit: {same}, "
+                         f"{differ[:8]}")
+    if meta_server != {"version": ASYNC_PUSHES,
+                       "pushed": {"0": ASYNC_PUSHES}}:
+        raise SystemExit(f"async_resume: server clocks {meta_server}")
+
+
+FAULT_TINY = ["--model", "transformer", "--tier", "tiny", "--kernels",
+              "cuda", "--precision", "bf16", "--batch", "4", "--seq", "64",
+              "--n-seqs", "32", "--k-sigma", "1.0", "--stop", "3",
+              "--device", "cuda", "--engine", "async-ps", "--verify-pushes"]
+FAULT_DEADLINE = 1.5                       # s; a tiny step takes well under
+
+
+def phase_async_faults():
+    """Fault handling on ``paper-transformer`` tiny on the card, with
+    ``--verify-pushes``, four fresh launcher processes at once: (1) three
+    elastic workers in lockstep, ``--deadline 1.5``, worker 1 crashing at
+    its step 2, worker 2 hanging 5 s at its step 3 and worker 0's pushes
+    at steps 1 and 4 corrupted and failed in transit: the run completes
+    with worker 1 evicted and its crash recorded, worker 2 evicted past the
+    deadline, the survivors re-striped (worker 0 alone takes every global
+    step after the second eviction), every retried push landed; (2) one
+    worker with only the corrupt and transient events and (3) the clean
+    one-worker run: bit for bit (log and final params by device
+    checksum); (4) two workers without ``--elastic``, worker 0 hanging
+    past the deadline: the run exits with ``WorkerStalled`` naming worker
+    0."""
+    import tempfile
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    dl = ["--deadline", str(FAULT_DEADLINE)]
+    stall = [sys.executable, "-m", "repro_torch.launch.train", *FAULT_TINY,
+             "--workers", "2", "--max-staleness", "0", "--steps", "16", *dl,
+             "--fault-plan", "hang@0:2:seconds=5"]
+    elastic = FAULT_TINY + [
+        "--workers", "3", "--max-staleness", "0", "--steps", "24",
+        "--elastic", *dl, "--fault-plan",
+        "crash@1:2;hang@2:3:seconds=5;corrupt@0:1;transient@0:4"]
+    one = FAULT_TINY + ["--workers", "1", "--steps", "8"]
+    faulty = one + ["--fault-plan", "corrupt@0:1;transient@0:3"]
+    with tempfile.TemporaryDirectory(prefix="async_faults_", dir=ROOT) as d:
+        proc = subprocess.Popen(stall, cwd=ROOT, env=env,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        try:
+            el, fa, cl = run_children(
+                [elastic, faulty, one],
+                [os.path.join(d, f"{n}.json") for n in ("el", "fa", "cl")],
+                [{"final_sum": True}] * 3)
+            so, se = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    kinds = [(e["event"], e["worker"]) for e in el["events"]]
+    evicts = {e["worker"]: e for e in el["events"] if e["event"] == "evict"}
+    after = [r for r in el["records"] if r["version"] >
+             max((e["at_version"] for e in evicts.values()), default=0)]
+    restriped = (sorted(evicts) == [1, 2]
+                 and all(r["worker"] == 0 for r in after)
+                 and [r["batch"] for r in after]
+                 == list(range(after[0]["batch"], after[0]["batch"]
+                               + len(after))) if after else False)
+    crash = next((e for e in el["events"] if e["event"] == "crash"), {})
+    same = {k: fa[k] == cl[k] for k in ASYNC_KEYS}
+    stalled = "WorkerStalled" in se and "worker 0 stalled" in se
+    out = dict(config="paper-transformer-tiny", deadline_s=FAULT_DEADLINE,
+               elastic=dict(events=kinds, pushes=len(el["records"]),
+                            evict_reasons={w: e["reason"]
+                                           for w, e in evicts.items()},
+                            survivors=[e["survivors"]
+                                       for e in evicts.values()],
+                            crash_error=crash.get("error"),
+                            pushes_after_evictions=len(after),
+                            batches_after_evictions=[r["batch"]
+                                                     for r in after],
+                            restriped=restriped, seconds=el["seconds"]),
+               retry=dict(equal=same, final_sum_equal=(
+                   fa["final_sum"] == cl["final_sum"]), pushes=len(fa[
+                       "records"])),
+               stall=dict(rc=proc.returncode, worker_stalled=stalled,
+                          message=next((l for l in se.splitlines()
+                                        if "stalled" in l), "")[:300]),
+               seconds=time.perf_counter() - t0)
+    emit("async_faults", **out)
+    if not (restriped and "deadline" in evicts.get(2, {}).get("reason", "")
+            and "InjectedCrash" in (crash.get("error") or "")
+            and crash.get("worker") == 1):
+        raise SystemExit("async_faults: the elastic run's evictions or "
+                         "re-striping are wrong (above)")
+    if not (all(same.values()) and out["retry"]["final_sum_equal"]):
+        raise SystemExit("async_faults: the retried pushes are not bit for "
+                         "bit the clean run")
+    if proc.returncode == 0 or not stalled:
+        raise SystemExit(f"async_faults: the non-elastic stall ended rc "
+                         f"{proc.returncode}:\n{so[-2000:]}\n{se[-3000:]}")
+
+
+def phase_async_parity():
+    """``repro_torch.distributed.async_ps.parity`` on the card: one worker
+    bit for bit with the per-step engine, then two workers at staleness 2
+    within ψ̄ tolerance 0.25 and τ within its bound."""
+    for args in (["--device", "cuda"],
+                 ["--device", "cuda", "--workers", "2", "--max-staleness",
+                  "2", "--steps", "64", "--tol", "0.25"]):
+        emit("async_parity", **run_harness(
+            "repro_torch.distributed.async_ps.parity", args,
+            "async-ps parity"))
 
 
 # ---------------------------------------------------------------------------
@@ -2706,6 +3066,19 @@ def phase_train_and_serve():
         raise SystemExit(f"train_and_serve: {out['compile_counts']}")
 
 
+def async_phases(per_step: dict) -> dict:
+    """The async parameter-server phases -> ``async_ps``'s device
+    launches."""
+    ref = phase_async_ps(per_step)
+    phase_async_ps2(per_step)
+    phase_async_resume(ref)
+    launches = ref["device_launches"]
+    del ref
+    phase_async_faults()
+    phase_async_parity()
+    return launches
+
+
 def serve_phases():
     phase_serve()
     phase_serve_oneshot()
@@ -2729,6 +3102,10 @@ def main():
     if sys.argv[1:2] == ["--serve-only"]:
         phase_device()
         return serve_phases()
+    if sys.argv[1:2] == ["--async-only"]:
+        phase_device()
+        phase_build()
+        return async_phases(phase_train("transformer"))
     smi = phase_device()
     phase_build()
     main_checks = phase_checks()
@@ -2759,6 +3136,7 @@ def main():
     phase_hybrid_parity()
     phase_multihost_parity()
     phase_zoo_parity()
+    async_launches = async_phases(train["transformer"])
     serve_phases()
     kernels = []
     for name, path, replaces in (
@@ -2774,7 +3152,8 @@ def main():
                         "launches": train[path]["launches"][name],
                         "launches_by_path": dict(
                             {m: train[m]["launches"][name] for m in MODELS},
-                            hybrid_rank0=hybrid.get(name, 0)),
+                            hybrid_rank0=hybrid.get(name, 0),
+                            async_ps=async_launches.get(name, 0)),
                         "max_abs_err": r["max_abs"], "ms": r["kernel_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],

@@ -2,10 +2,12 @@
 ``torch.distributed`` (``make_hybrid_step``: data parallel on a pure-data
 mesh, tensor parallel over a ``model`` axis; ``make_data_parallel_step``
 is its alias), the reduction contexts, the data-parallel prefetcher and
-the parity harnesses (``parity``, ``hybrid_parity``, ``multihost_parity``).
+the parity harnesses (``parity``, ``hybrid_parity``, ``multihost_parity``),
+and the asynchronous parameter-server engine (§6.2) in
+``repro_torch.distributed.async_ps`` (staleness-bounded worker threads,
+server-side SPC, elastic eviction).
 
-Port of ``repro.distributed``. Not ported yet, waiting for its slice: the
-asynchronous parameter server ``async_ps``.
+Port of ``repro.distributed``.
 
 The reduction contexts live in ``repro_torch.core.reduce`` (so ``core``
 never imports this package) and are re-exported here. Exports resolve
@@ -40,6 +42,10 @@ _EXPORTS = {
     "run_hybrid_parity": "repro_torch.distributed.hybrid_parity",
     "run_hybrid_parity_ranks": "repro_torch.distributed.hybrid_parity",
     "run_multihost_parity": "repro_torch.distributed.multihost_parity",
+    "AsyncPSCoordinator": "repro_torch.distributed.async_ps",
+    "ParamServer": "repro_torch.distributed.async_ps",
+    "records_to_trainlog": "repro_torch.distributed.async_ps",
+    "run_async_parity": "repro_torch.distributed.async_ps",
 }
 
 __all__ = list(_EXPORTS)

@@ -22,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -30,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
 _LIBS: dict = {}
+_LOAD = threading.Lock()
 LOGS: dict = {}     # name -> nvcc's output, for the builds of this process
 
 
@@ -85,10 +87,13 @@ def build_all(names=SOURCES) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library for ``csrc/<name>.cu``, built first if needed
+    (under a lock: threads of one process never build or load twice)."""
     lib = _LIBS.get(name)
     if lib is None:
-        path = build_all((name,))[name]
-        lib = ctypes.CDLL(str(path))
-        _LIBS[name] = lib
+        with _LOAD:
+            lib = _LIBS.get(name)
+            if lib is None:
+                path = build_all((name,))[name]
+                lib = _LIBS[name] = ctypes.CDLL(str(path))
     return lib

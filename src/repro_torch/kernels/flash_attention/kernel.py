@@ -194,8 +194,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
                      o.data_ptr(), B, Sq, Sk, H, K, hd, int(causal),
                      window or 0, _DTYPES[q.dtype],
                      None if lists is None else lists.data_ptr(), grid, stream)
-    flash_attention.launches += 1
-    launch_count.bump("flash_attention")
+    launch_count.count(flash_attention, "flash_attention")
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")

@@ -151,8 +151,7 @@ def fused_xent(h, w, labels, vocab_size: int):
                      w.data_ptr(), w.stride(0), w.stride(1),
                      labels.data_ptr(), out.data_ptr(), partial.data_ptr(),
                      N, d, Vp, vocab_size, nsplit, _DTYPES[h.dtype], stream)
-    fused_xent.launches += 1
-    launch_count.bump("fused_xent")
+    launch_count.count(fused_xent, "fused_xent")
     if err != 0:
         raise RuntimeError(f"fused_xent kernel launch failed: CUDA error {err}")
     return out

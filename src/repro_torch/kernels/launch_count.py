@@ -11,12 +11,20 @@ body runs. Enable before the graph is captured (the counters are static
 tensors the graph points at); ``reset()`` zeroes them, ``read()`` returns
 them. Until ``enable``, ``bump`` does nothing, so the timed paths launch no
 extra kernel.
+
+``count(wrapper, name)`` does both where a wrapper launches: the host
+count under a lock (the async parameter server's worker threads launch
+the same kernels at once, and ``+=`` on an attribute is no atomic
+operation), then ``bump``.
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 
 _COUNTS: dict = {}               # kernel name -> 0-d int64 tensor
+_HOST = threading.Lock()         # guards the wrappers' host counts
 
 
 def enable(device, names) -> None:
@@ -38,6 +46,14 @@ def bump(name: str) -> None:
     count = _COUNTS.get(name)
     if count is not None:
         count.add_(1)
+
+
+def count(wrapper, name: str) -> None:
+    """One launch of ``wrapper``'s kernel: ``wrapper.launches`` plus one,
+    under a lock, then ``bump(name)``."""
+    with _HOST:
+        wrapper.launches += 1
+    bump(name)
 
 
 def reset() -> None:

@@ -151,8 +151,7 @@ def ssd_intra_chunk(x, dt, A, B, C):
                      C.data_ptr(), *C.stride()[:3],
                      y.data_ptr(), states.data_ptr(), decays.data_ptr(),
                      N, cl, nh, hd, G, ds, _DTYPES[x.dtype], stream)
-    ssd_intra_chunk.launches += 1
-    launch_count.bump("ssd_scan")
+    launch_count.count(ssd_intra_chunk, "ssd_scan")
     if err != 0:
         raise RuntimeError(f"ssd_intra_chunk kernel launch failed: CUDA "
                            f"error {err}")

@@ -179,17 +179,22 @@ def _rank_main(target, rank, world, store, device, backend, timeout, args,
         results.put((rank, False, traceback.format_exc()))
 
 
-def spawn_ranks(target: Callable, world: int, *args, device="cpu",
+def spawn_ranks(target: Callable, world: int, *args, device="cuda",
                 backend: Optional[str] = None,
                 timeout: float = 300.0) -> list:
     """Run ``target(rank, world, *args)`` on ``world`` fresh processes
     (``spawn``), each rank of one group (``backend``, default by
-    ``device``) joined through a file store in a temporary directory.
+    ``device``; the card unless ``device="cpu"`` is passed, and without a
+    card that raises here, before any rank starts) joined through a file
+    store in a temporary directory.
     ``target`` and ``args`` must pickle (a module-level function). Returns
     the ranks' results in rank order; raises ``RuntimeError`` with the
     tracebacks if a rank fails, and kills every rank still running after
     ``timeout`` seconds."""
     import multiprocessing as mp
+
+    from repro_torch.device import resolve_device
+    resolve_device(device)
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     got, procs = {}, []

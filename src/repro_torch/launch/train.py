@@ -61,9 +61,29 @@ checkpoint holds the whole tensors, gathered, and a resume takes each
 rank's part back) and ``--obs-dir`` compose with both. A ``--batch`` the
 data ranks do not divide exits 1, as does an M that does not divide the
 ranks (the mesh's ``MeshError``) or ``--model-parallel > 1`` with
-``--engine data-parallel``; ``--engine async-ps`` exits naming its slice.
-Only rank 0 prints. Without ``--engine`` the run is the single-device
-engines' as above.
+``--engine data-parallel``. Only rank 0 prints. Without ``--engine`` the
+run is the single-device engines' as above.
+
+``--engine async-ps`` trains through the asynchronous parameter server
+(``repro_torch.distributed.async_ps``, paper §6.2): ``--workers N`` threads
+of this process, each with a replica of the model, pull the server's
+canonical params, train on their FCPR stripe (worker w's step k is global
+batch ``k·N + w``) and push; the server runs the SPC chart over every
+worker's ψ and folds a push that raced τ others with ``w(τ)``
+(``--staleness-decay``). ``--max-staleness s`` is the SSP bound (0:
+lockstep rounds; one worker at 0 is the per-step engine bit for bit).
+``--elastic`` evicts a crashed worker or one that misses the heartbeat
+``--deadline`` and re-stripes its shard; ``--fault-plan SPEC``
+(``repro_torch.fault``) injects crashes, hangs, slow steps, corrupt and
+transient pushes; ``--verify-pushes`` checksums every push. It warms up
+(kernels, the subproblem, the server's folds) before the clock. It prints
+the reference's ``push N wW tau=T ...`` lines (the first and every 5th),
+an ``event: ...`` line per eviction or crash and a ``staleness:
+mean_tau=... max_tau=... bound=...`` line. ``--checkpoint-every N``
+counts applied pushes (written under the server lock) and ``--resume``
+restores the server's version and push clocks. It refuses
+``--chunk-steps > 1``, ``--device-ring``, ``--schedule``, a VLM or an
+enc-dec config, ``--model-parallel > 1`` and more than one process.
 
 ``--obs-dir D`` writes the run's telemetry (``repro_torch.obs``) to
 ``D/metrics.p0.jsonl`` and ``D/summary.json``: the SPC control chart, step
@@ -101,6 +121,9 @@ the card the kernels are built before the clock starts.
       --model transformer --tier tiny --steps 6 --seq 64 --n-seqs 32 \\
       --engine hybrid --model-parallel 2 --coordinator 127.0.0.1:29512 \\
       --num-processes 2 --process-id 0      # and --process-id 1
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --model transformer --tier tiny --steps 8 --seq 64 --n-seqs 32 \\
+      --engine async-ps --workers 2 --max-staleness 1
 """
 from __future__ import annotations
 
@@ -196,7 +219,9 @@ def parse_args(argv=None):
                          "repro_torch.train.checkpoints)")
     ap.add_argument("--checkpoint-every", type=int, default=0,
                     help="checkpoint cadence in steps (saved at the first "
-                         "step/chunk boundary past each mark).  0 = never")
+                         "step/chunk boundary past each mark; async-ps: "
+                         "every N applied pushes, written under the server "
+                         "lock).  0 = never")
     ap.add_argument("--publish-dir", default=None,
                     help="train-and-serve: directory where full-engine "
                          "checkpoints are published for a live serving "
@@ -230,8 +255,9 @@ def parse_args(argv=None):
                     choices=["hybrid", "pjit", "data-parallel", "async-ps"],
                     help="data-parallel: the data-parallel engine on the "
                          "(data,) mesh; hybrid/pjit: the DP x TP engine on "
-                         "the (data, model) mesh of --model-parallel (async-"
-                         "ps is not ported yet); omit for the single-device "
+                         "the (data, model) mesh of --model-parallel; "
+                         "async-ps: the asynchronous parameter server "
+                         "(worker threads); omit for the single-device "
                          "engines")
     ap.add_argument("--data-parallel", action="store_true",
                     help="alias for --engine data-parallel")
@@ -239,23 +265,55 @@ def parse_args(argv=None):
                     help="hybrid engine: ranks on the tensor-parallel "
                          "'model' axis (must divide the ranks; the rest "
                          "form the data axes)")
+    ap.add_argument("--workers", type=int, default=2,
+                    help="async-ps: number of worker threads")
+    ap.add_argument("--max-staleness", type=int, default=0,
+                    help="async-ps: SSP bound — a worker may start step k "
+                         "only when every worker finished step k-N; 0 = "
+                         "lockstep (synchronous schedule)")
+    ap.add_argument("--staleness-decay", default="inverse",
+                    help="async-ps: w(tau) family[:alpha] — inverse "
+                         "(1/(1+a*tau)), exp (e^-a*tau), none")
+    ap.add_argument("--elastic", action="store_true",
+                    help="async-ps: evict crashed/deadline-missing workers "
+                         "and re-stripe their FCPR shard across survivors "
+                         "instead of failing the run")
+    ap.add_argument("--deadline", type=float, default=120.0,
+                    help="async-ps: heartbeat deadline in seconds — a "
+                         "worker blocking the SSP clock without a "
+                         "heartbeat for this long is stalled (evicted when "
+                         "--elastic, fatal diagnostic otherwise)")
+    ap.add_argument("--fault-plan", default=None,
+                    help="async-ps: deterministic fault injection spec, "
+                         "kind@worker:step[:key=value,...] joined by ';' — "
+                         "e.g. 'crash@2:5;hang@1:8:seconds=1.0' "
+                         "(repro_torch.fault)")
+    ap.add_argument("--verify-pushes", action="store_true",
+                    help="async-ps: workers checksum their deltas and the "
+                         "server rejects corrupt arrivals (rejected/"
+                         "transient pushes retry with backoff)")
     ENV.add_process_args(ap)
     return ap.parse_args(argv)
 
 
 def engine_of(args):
-    """The data-parallel engine's name, or None for the single-device
-    engines; raises ValueError for the engines not ported yet.
-    ``--coordinator`` or ``--num-processes`` alone implies the
-    data-parallel engine."""
+    """The engine's name: ``data-parallel``, ``hybrid``, ``async-ps``, or
+    None for the single-device engines; raises ValueError for a
+    combination no engine runs. ``--coordinator`` or ``--num-processes``
+    alone implies the data-parallel engine."""
     engine = args.engine or ("data-parallel" if args.data_parallel else None)
     if engine is None and (args.coordinator
                            or args.num_processes not in (None, 1)):
         engine = "data-parallel"
     if engine == "async-ps":
-        raise ValueError("--engine async-ps: the asynchronous parameter-"
-                         "server engine is not ported yet (the async-PS "
-                         "slice, ROADMAP A15)")
+        if args.model_parallel != 1:
+            raise ValueError("--model-parallel composes with --engine "
+                             "hybrid, not --engine async-ps")
+        if args.coordinator or args.num_processes not in (None, 1):
+            raise ValueError("--engine async-ps runs its workers as threads "
+                             "of one process; drop --coordinator and "
+                             "--num-processes")
+        return engine
     if engine is None:
         if args.model_parallel != 1:
             raise ValueError("--model-parallel needs --engine hybrid")
@@ -285,6 +343,25 @@ def data_mesh(args, dev):
                          f"{n} data-parallel ranks (it is split across "
                          f"them)")
     return mesh
+
+
+def refuse_async(args, cfg) -> None:
+    """Raise ValueError for what the async-PS engine does not run, as the
+    reference's ``run_async_ps`` refuses it."""
+    if cfg.family in ("vlm", "encdec"):
+        raise ValueError("--engine async-ps supports decoder-only/cnn "
+                         "configs (no constant frontend-embed plumbing)")
+    if args.chunk_steps > 1 or args.device_ring:
+        raise ValueError("--chunk-steps/--device-ring do not compose with "
+                         "--engine async-ps (workers dispatch per step from "
+                         "host snapshots, there is no fused scan or device "
+                         "ring in this engine)")
+    if args.schedule is not None:
+        raise ValueError("--schedule does not compose with --engine "
+                         "async-ps (workers own fixed FCPR stripes; a "
+                         "shared selection policy would race the table)")
+    if args.workers < 1 or args.max_staleness < 0:
+        raise ValueError("--workers must be >= 1 and --max-staleness >= 0")
 
 
 def resolve_config(args):
@@ -416,11 +493,15 @@ def _maybe_resume(args, ckpt, *, params_like, state_like, sched_like=None,
     return ck
 
 
-def _make_observer(args, cfg, icfg, engine: str, table: bool = False):
+def _make_observer(args, cfg, icfg, engine: str, table: bool = False,
+                   replay_exact: bool = True):
     """``--obs-dir`` -> a ``TrainObserver`` writing this process's JSONL
     (tagged process_id/engine/model), or None when obs is off. The SPC
     exporter replays the engine's queue discipline: per-batch table writes
-    (``table``) for ``uses_table`` schedules, FIFO otherwise."""
+    (``table``) for ``uses_table`` schedules, FIFO otherwise. Multi-worker
+    async-PS runs push in commit order but observe losses in a (possibly
+    different) race order, so their replay is chart-only — counters still
+    reconcile exactly (``replay_exact=False``)."""
     if not args.obs_dir:
         return None
     os.makedirs(args.obs_dir, exist_ok=True)
@@ -431,16 +512,19 @@ def _make_observer(args, cfg, icfg, engine: str, table: bool = False):
     rec = MetricsRecorder(sinks, tags={"process_id": pid, "engine": engine,
                                        "model": cfg.name})
     return TrainObserver(rec, n_batches=icfg.n_batches, k_sigma=icfg.k_sigma,
-                         table=table, examples_per_step=args.batch)
+                         table=table, examples_per_step=args.batch,
+                         replay_exact=replay_exact)
 
 
-def run(args, *, fused=None, profiler=None, on_step=None) -> dict:
+def run(args, *, fused=None, profiler=None, on_step=None,
+        snapshot_hook=None) -> dict:
     """Train as ``args`` say (``_run``); a data-parallel run makes its
     process group first (``--coordinator`` …, else a one-rank group that
-    lasts for the run)."""
-    if engine_of(args) is None:
+    lasts for the run). ``snapshot_hook`` goes to the async-PS workers
+    (``async_ps.worker.Worker``)."""
+    if engine_of(args) in (None, "async-ps"):
         return _run(args, None, fused=fused, profiler=profiler,
-                    on_step=on_step)
+                    on_step=on_step, snapshot_hook=snapshot_hook)
     dev = resolve_device(args.device)
     ENV.initialize_from_args(args, dev)
     with ENV.local_group(dev, args.dist_backend):
@@ -448,7 +532,8 @@ def run(args, *, fused=None, profiler=None, on_step=None) -> dict:
                     profiler=profiler, on_step=on_step)
 
 
-def _run(args, mesh, *, fused=None, profiler=None, on_step=None) -> dict:
+def _run(args, mesh, *, fused=None, profiler=None, on_step=None,
+         snapshot_hook=None) -> dict:
     """Train as ``args`` say. ``fused`` (default ``--chunk-steps > 1``)
     picks the chunked engine, so that K = 1 can run through it too;
     ``profiler`` (a ``torch.profiler.profile``; ``--profile-dir`` makes
@@ -472,7 +557,7 @@ def _run(args, mesh, *, fused=None, profiler=None, on_step=None) -> dict:
     model-axis sums over the run (``TensorParallel.moved``) and in
     parameter gathers an evaluation, else None).
     ``on_step(j, carry)``, if given, runs after each per-step step (j the
-    steps done)."""
+    steps done). An async-PS run goes to ``_run_async``."""
     dev = resolve_device(args.device)
     engine = engine_of(args)
     k = args.chunk_steps
@@ -487,9 +572,12 @@ def _run(args, mesh, *, fused=None, profiler=None, on_step=None) -> dict:
     model = build_model(cfg, kernels=args.kernels, param_dtype=dtype,
                         remat=args.remat != "none", device=dev)
     model.init(0)
+    layout = layout_for(model.module)
+    if engine == "async-ps":
+        return _run_async(args, dev, cfg, model, dtype, layout,
+                          profiler=profiler, snapshot_hook=snapshot_hook)
     params = model.params()
     n_params = sum(p.numel() for p in params)
-    layout = layout_for(model.module)
     ranks = 0 if mesh is None else mesh.size()
     n_data = 1 if mesh is None else data_axis_size(mesh)
     tp = mesh is not None and bool(tensor_axes(mesh))
@@ -655,6 +743,152 @@ def _run(args, mesh, *, fused=None, profiler=None, on_step=None) -> dict:
             else init_fn.reduce_ctx.buffer_bytes}
 
 
+def _run_async(args, dev, cfg, model, dtype, layout, *, profiler=None,
+               snapshot_hook=None) -> dict:
+    """``--engine async-ps``: the reference's ``run_async_ps``. ``model`` is
+    worker 0's replica (and ``params0``, which the server copies); workers
+    1… get replicas of their own. The warm-up runs before the clock and
+    before the peak-memory count; ``profiler`` is entered around the run
+    only. After the run the model holds the server's canonical params.
+    -> ``_run``'s dict (``steps``: the server's version at the end,
+    ``start``: the resumed version, else 0; ``log``: the push records in
+    commit order, ``records_to_trainlog``), with ``records``, ``events``,
+    ``workers`` and ``warmup_seconds``."""
+    from repro_torch.core.isgd import assign_, isgd_init
+    from repro_torch.core.reduce import staleness_reduce_from_spec
+    from repro_torch.distributed.async_ps.coordinator import (
+        AsyncPSCoordinator, records_to_trainlog, snapshot_engine_kwargs,
+        snapshot_from_checkpoint)
+    from repro_torch.fault.plan import FaultPlan
+
+    refuse_async(args, cfg)
+    params = model.params()
+    n_params = sum(p.numel() for p in params)
+    data = make_lm_tokens(0, args.n_seqs, args.seq, cfg.vocab_size)
+    sampler = FCPRSampler(data, batch_size=args.batch, seed=1)
+    if sampler.n_batches % args.workers:
+        # legal since re-striping: the strided shards still cover the
+        # global cycle, ownership just rotates (see ShardedFeed)
+        p0print(f"note: n_batches={sampler.n_batches} not a multiple of "
+                f"--workers {args.workers}; per-worker batch ownership "
+                f"rotates through the FCPR cycle")
+    faults = None
+    if args.fault_plan:
+        faults = FaultPlan.from_spec(args.fault_plan)
+        p0print(f"faults: {faults}")
+    rctx = staleness_reduce_from_spec(args.staleness_decay)
+    p0print(f"arch={cfg.name} engine=async-ps workers={args.workers} "
+            f"max_staleness={args.max_staleness} "
+            f"w(tau)={args.staleness_decay} elastic={args.elastic} "
+            f"deadline={args.deadline:.0f}s device={dev} "
+            f"kernels={args.kernels} precision={args.precision} "
+            f"remat={args.remat}")
+    p0print(f"params: {n_params/1e6:.1f}M (canonical copy on the server, "
+            f"a replica a worker)")
+    if args.kernels == "cuda" and dev.type == "cuda":
+        build.build_all()
+    icfg = ISGDConfig(n_batches=sampler.n_batches, k_sigma=args.k_sigma,
+                      stop=args.stop)
+    rule, lr_fn = RULES[args.rule](), constant_lr(args.lr)
+    obs = _make_observer(args, cfg, icfg, "async-ps",
+                         replay_exact=args.workers == 1)
+    recorder = obs.recorder if obs is not None else None
+    ckpt = _make_checkpointer(args, layout, recorder=recorder)
+
+    def replica(w):
+        if w == 0:
+            return params, model.loss_fn
+        m = build_model(cfg, kernels=args.kernels, param_dtype=dtype,
+                        remat=args.remat != "none", device=dev)
+        m.init(0)
+        return m.params(), m.loss_fn
+
+    coord = AsyncPSCoordinator(
+        replica, rule, icfg, workers=args.workers,
+        max_staleness=args.max_staleness, lr_fn=lr_fn, reduce_ctx=rctx,
+        inconsistent=not args.consistent, elastic=args.elastic,
+        deadline_s=args.deadline, verify_pushes=args.verify_pushes,
+        recorder=recorder, snapshot_hook=snapshot_hook,
+        **({} if faults is None else {"faults": faults}))
+    resume, start = None, 0
+    if args.resume and ckpt is not None:
+        latest = ckpt.latest()
+        if latest is None:
+            p0print(f"resume: no checkpoint under {ckpt.directory!r}; "
+                    f"starting fresh")
+        else:
+            ck = restore_engine(latest, params_like=params,
+                                state_like=isgd_init(rule, icfg, params),
+                                layout=layout, recorder=ckpt.recorder)
+            ckpt.mark(ck.step)
+            resume = snapshot_from_checkpoint(ck)
+            start = resume["version"]
+            p0print(f"resume: restored {latest!r} at server version "
+                    f"{ck.server['version']} (worker push clocks: "
+                    f"{ck.server['pushed']})")
+    run_kw = {}
+    if ckpt is not None:
+        def checkpoint_fn(snap):
+            kw = snapshot_engine_kwargs(snap)
+            ckpt.maybe_save(kw.pop("step"), **kw)
+        # every push is offered; the checkpointer keeps its own cadence
+        run_kw = dict(checkpoint_fn=checkpoint_fn, checkpoint_every=1)
+    t0 = time.perf_counter()
+    coord.warmup(params, sampler)
+    warm = time.perf_counter() - t0
+    p0print(f"warmup: {warm:.1f}s (propose, the subproblem, the server's "
+            f"observe and folds)")
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    with profiler if profiler is not None else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        final, state, records = coord.run(params, sampler, args.steps,
+                                          resume=resume, **run_kw)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - t0
+    with torch.no_grad():
+        assign_(params, final)            # the trained model: canonical
+    for ev in coord.events:
+        p0print(f"event: {ev}")
+    for i, r in enumerate(records):
+        if (i + 1) % 5 == 0 or i == 0:
+            p0print(f"push {i+1:4d} w{r['worker']} tau={r['tau']} "
+                    f"loss={r['loss']:.4f} psi_bar={r['psi_bar']:.4f} "
+                    f"limit={r['limit']:.4f} accel={r['accelerated']}")
+    taus = [r["tau"] for r in records] or [0]
+    p0print(f"staleness: mean_tau={sum(taus)/len(taus):.2f} "
+            f"max_tau={max(taus)} "
+            f"bound={(2 * args.max_staleness + 1) * (args.workers - 1)}")
+    ran = max(len(records), 1)
+    final_obs = None
+    if obs is not None:
+        obs.async_run(records, coord.events)
+        # a resumed run missed the pushes before the restart: chart only
+        final_obs = obs.finalize(None if resume is not None else state,
+                                 steps=len(records), wall=dt)
+        write_merged_summary(args.obs_dir)
+        p0print(f"obs: {args.obs_dir} "
+                f"spc_reconciled={final_obs.get('reconciled', 'n/a')} "
+                f"accel_events={final_obs['accel_events']}")
+    p0print(f"done: {len(records)} steps in {dt:.1f}s "
+            f"({dt/ran*1e3:.0f} ms/step) "
+            f"accelerated={int(state.accel_count)} "
+            f"sub_iters={int(state.sub_iters)}")
+    cuda = dev.type == "cuda"
+    return {"log": records_to_trainlog(records), "batch_idx": [],
+            "state": state, "sched_state": None, "model": model,
+            "seconds": dt, "placement": None, "local_params": params,
+            "tp_bytes": None, "steps": coord.server.version, "start": start,
+            "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda else None,
+            "peak_reserved": torch.cuda.max_memory_reserved(dev) if cuda else None,
+            "params": n_params, "capture_seconds": 0.0, "chunk_steps": 1,
+            "obs": final_obs, "ranks": 0, "reduce_bytes": None,
+            "records": records, "events": coord.events,
+            "workers": args.workers, "warmup_seconds": warm}
+
+
 class _WholeTensors:
     """A checkpointer of a tensor-parallel run: every save gathers the
     placed params and the rule state into whole tensors first, so the file
@@ -764,8 +998,9 @@ def main(argv=None) -> dict:
         raise SystemExit("--resume needs --checkpoint-dir")
     try:
         resolve_device(args.device)
-        resolve_config(args)
-        engine_of(args)
+        cfg = resolve_config(args)
+        if engine_of(args) == "async-ps":
+            refuse_async(args, cfg)
         if args.schedule is not None:
             schedule_from_spec(args.schedule)
     except (RuntimeError, ValueError, TypeError) as e:   # the CLI boundary

@@ -1,6 +1,6 @@
 """Kill-and-resume parity: a checkpointed run resumes **bit for bit**.
 
-Port of ``repro.train.resume_parity``, its synchronous legs. Each leg runs
+Port of ``repro.train.resume_parity``, all five legs. Each leg runs
 the same FCPR problem twice:
 
   * **uninterrupted** — the reference trajectory to S steps;
@@ -31,9 +31,14 @@ Legs:
     group (a one-rank group made for the leg when none exists), each rank on
     its rows; the checkpoint is written by rank 0 and validated by every
     other rank (``Checkpointer`` roles) in a directory rank 0 makes and
-    shares, and every rank restores from it.
-
-The ``async-ps`` leg waits for the async-PS port.
+    shares, and every rank restores from it;
+  * ``async-ps`` — the asynchronous parameter server
+    (``repro_torch.distributed.async_ps``), one worker at staleness 0: the
+    uninterrupted run doubles as the checkpoint writer (the server's
+    in-lock ``checkpoint_fn`` takes the snapshot at version k, which pairs
+    push k with its SSP clock), and a fresh coordinator resumes from the
+    restored checkpoint (``snapshot_from_checkpoint``), replaying only the
+    pushes after k.
 
     PYTHONPATH=src python -m repro_torch.train.resume_parity [--device cpu]
     PYTHONPATH=src python -m repro_torch.train.resume_parity --device cpu \
@@ -277,7 +282,47 @@ def _leg_hybrid(S: int, k: int, device, backend=None) -> dict:
                 a_ref)
 
 
-LEGS = ("per-step", "chunked", "sched", "hybrid")
+def _leg_async_ps(tmp: str, S: int, k: int, device) -> dict:
+    from repro_torch.core.isgd import isgd_init
+    from repro_torch.distributed.async_ps.coordinator import (
+        AsyncPSCoordinator, snapshot_engine_kwargs, snapshot_from_checkpoint)
+    make, sampler, icfg, rule, lr_fn = _problem(device)
+
+    def coord():
+        return AsyncPSCoordinator(lambda w: make(), rule, icfg, workers=1,
+                                  max_staleness=0, lr_fn=lr_fn)
+
+    # the uninterrupted run doubles as the checkpoint writer: the server's
+    # in-lock checkpoint_fn fires at version k (crash consistency — the
+    # snapshot pairs push k with its SSP clock); the server never writes a
+    # tensor it handed out, so the snapshot is still version k's after
+    # the run
+    snaps = []
+    params0, _ = make()
+    c1 = coord()
+    c1.warmup(params0, sampler)
+    params, state, records = c1.run(params0, sampler, S,
+                                    checkpoint_fn=snaps.append,
+                                    checkpoint_every=k)
+    snap = next(s for s in snaps if s["version"] == k)
+    path = checkpoints.save_engine(os.path.join(tmp, "async_ps"),
+                                   layout=LAYOUT,
+                                   **snapshot_engine_kwargs(snap))
+    fresh, _ = make()
+    ck = checkpoints.restore_engine(
+        path, params_like=fresh, state_like=isgd_init(rule, icfg, fresh),
+        layout=LAYOUT)
+    assert ck.server == {"version": k, "pushed": {0: k}}, ck.server
+    params2, state2, rec2 = coord().run(fresh, sampler, S,
+                                        resume=snapshot_from_checkpoint(ck))
+    a_ref = sum(int(r["accelerated"]) for r in records)
+    r = _leg("async-ps", (params, _state(state)), (params2, _state(state2)),
+             a_ref)
+    r["resumed_pushes"] = len(rec2)            # only the replayed tail
+    return r
+
+
+LEGS = ("per-step", "chunked", "sched", "hybrid", "async-ps")
 
 
 def run_resume_parity(S: int = 30, k: int = 10, *, legs=LEGS,
@@ -289,7 +334,8 @@ def run_resume_parity(S: int = 30, k: int = 10, *, legs=LEGS,
     runners = {"per-step": lambda t: _leg_per_step(t, S, k, dev),
                "chunked": lambda t: _leg_chunked(t, S, 6, dev),
                "sched": lambda t: _leg_sched(t, S, max(3, k - k % 3), dev),
-               "hybrid": lambda t: _leg_hybrid(S, k, dev, backend)}
+               "hybrid": lambda t: _leg_hybrid(S, k, dev, backend),
+               "async-ps": lambda t: _leg_async_ps(t, S, k, dev)}
     unknown = set(legs) - set(runners)
     if unknown:
         raise ValueError(f"legs {sorted(unknown)} are not ported yet "

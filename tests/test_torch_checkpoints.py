@@ -16,9 +16,12 @@ CPU.
     on the port's trajectory;
   * the restore copies into the run's own tensors (the fused engine's
     graph holds their addresses);
-  * ``repro_torch.train.resume_parity``'s four legs are bit-exact (max
+  * ``repro_torch.train.resume_parity``'s five legs are bit-exact (max
     deviation 0.0) with accelerations across the kill, the ``hybrid`` leg
     also across two spawned gloo ranks;
+  * the async parameter server's checkpoints (``--engine async-ps``):
+    ``--checkpoint-every`` counts pushes and ``--resume`` continues bit for
+    bit; the server's version and push clocks restore in the JAX package;
   * ``Checkpointer(role="validate")``: a validator whose replica equals the
     written file passes, one perturbed raises ``CheckpointError`` (in one
     process, and on rank 1 of two spawned ranks, rank 0 writing).
@@ -515,11 +518,11 @@ def test_validator_rank_catches_a_diverged_replica(tmp_path):
     import _torch_dist_workers as WK
     from repro_torch.launch.env import spawn_ranks
     same = spawn_ranks(WK.validate_rank, 2, str(tmp_path / "same"), False,
-                       timeout=240)
+                       device="cpu", timeout=240)
     assert [r[0] for r in same] == ["write", "validate"]
     assert same[0][1] == same[1][1] and same[1][2] is None
     off = spawn_ranks(WK.validate_rank, 2, str(tmp_path / "off"), True,
-                      timeout=240)
+                      device="cpu", timeout=240)
     assert off[0][2] is None
     assert "diverged at step 8" in off[1][2]
     assert sorted(os.listdir(tmp_path / "off")) == ["ckpt_00000004.npz",
@@ -543,3 +546,80 @@ def test_layout_keys_are_the_references():
     assert sorted(got) == sorted(want)
     for k in want:
         assert got[k].shape == want[k].shape and got[k].dtype == want[k].dtype, k
+
+
+# ---------------------------------------------------------------------------
+# the async parameter server's checkpoints (--engine async-ps)
+# ---------------------------------------------------------------------------
+ASYNC_TINY = ["--device", "cpu", "--model", "transformer", "--tier", "tiny",
+              "--batch", "4", "--seq", "32", "--n-seqs", "16", "--precision",
+              "f32", "--k-sigma", "-3", "--engine", "async-ps", "--workers",
+              "1"]
+
+
+def test_async_launcher_checkpoint_resume_equals_uninterrupted(tmp_path,
+                                                               capsys):
+    """``--checkpoint-every 4`` counts applied pushes: kill after push 4,
+    ``--resume`` to 8 in a fresh run. The resumed pushes equal the
+    uninterrupted run's, and the checkpoint written at push 8 holds its
+    final params and ISGD state bit for bit, with the server's version
+    and push clocks."""
+    from repro_torch.launch import train as launcher
+    ck = ["--checkpoint-dir", str(tmp_path), "--checkpoint-every", "4"]
+    ref = launcher.main(ASYNC_TINY + ["--steps", "8"])
+    launcher.main(ASYNC_TINY + ["--steps", "4"] + ck)
+    capsys.readouterr()
+    got = launcher.main(ASYNC_TINY + ["--steps", "8", "--resume"] + ck)
+    out = capsys.readouterr().out
+    assert "resume: restored" in out and "at server version 4" in out
+    assert (got["start"], got["steps"]) == (4, 8)
+    for key in ("losses", "psi_bar", "psi_std", "limits", "accelerated",
+                "sub_iters"):
+        assert getattr(got["log"], key) == getattr(ref["log"], key)[4:], key
+    assert any(got["log"].accelerated), "the branch never fired after the kill"
+    path = str(tmp_path / "ckpt_00000008.npz")
+    assert checkpoints.load_extra(path)["server"] == {"version": 8,
+                                                      "pushed": {"0": 8}}
+    with np.load(path) as f:
+        stored = {k: f[k] for k in f.files if k != "__meta__"}
+    want = checkpoints.tree_arrays(checkpoints.pack_engine_state(
+        params=ref["model"].params(), state=ref["state"], step=8,
+        layout=checkpoints.layout_for(ref["model"].module))[0])
+    assert stored.keys() == want.keys()
+    for key in want:
+        assert np.array_equal(stored[key], want[key]), key
+
+
+def test_async_checkpoint_restores_in_jax_with_its_server_clocks(tmp_path):
+    """A checkpoint the port's server writes (the resume-parity problem,
+    one worker, snapshot at version 6) restores through the JAX package's
+    ``restore_engine``, and the JAX ``snapshot_from_checkpoint`` reads the
+    same version and push clocks and the same values."""
+    from repro.core import isgd_init as j_isgd_init
+    from repro.distributed.async_ps.coordinator import (
+        snapshot_from_checkpoint as j_snapshot_from_checkpoint)
+    from repro_torch.distributed.async_ps.coordinator import (
+        AsyncPSCoordinator, snapshot_engine_kwargs)
+    make, sampler, icfg, rule, lr_fn = resume_parity._problem("cpu")
+    snaps = []
+    coord = AsyncPSCoordinator(lambda w: make(), rule, icfg, workers=1,
+                               lr_fn=lr_fn)
+    coord.run(make()[0], sampler, 8, checkpoint_fn=snaps.append,
+              checkpoint_every=6)
+    (snap,) = snaps
+    path = checkpoints.save_engine(str(tmp_path / "a"),
+                                   layout=resume_parity.LAYOUT,
+                                   **snapshot_engine_kwargs(snap))
+    j_params = {"w": jnp.zeros(6, jnp.float32),
+                "b": jnp.zeros((), jnp.float32)}
+    j_icfg = J_ISGDConfig(n_batches=icfg.n_batches, k_sigma=icfg.k_sigma,
+                          stop=icfg.stop, zeta=icfg.zeta)
+    ck = JCK.restore_engine(path, params_like=j_params,
+                            state_like=j_isgd_init(J_RULES["momentum"](),
+                                                   j_icfg, j_params))
+    js = j_snapshot_from_checkpoint(ck)
+    assert (js["version"], js["pushed"], js["iter"]) == (6, {0: 6}, 6)
+    np.testing.assert_array_equal(np.asarray(js["params"]["w"]),
+                                  snap["params"][0].detach().numpy())
+    np.testing.assert_array_equal(np.asarray(js["queue"].buf),
+                                  snap["queue"].buf.numpy())

@@ -69,7 +69,8 @@ STEPS = 20
 @pytest.fixture(scope="module", params=[2, 4], ids=["2-ranks", "4-ranks"])
 def reduced(request):
     world = request.param
-    return world, spawn_ranks(W.reduce_rank, world, SEED, timeout=TIMEOUT)
+    return world, spawn_ranks(W.reduce_rank, world, SEED, device="cpu",
+                              timeout=TIMEOUT)
 
 
 def _stacked_mean(x: np.ndarray, dtype=torch.float32) -> np.ndarray:
@@ -278,7 +279,7 @@ def test_parity_problem_matches_jax_data_parallel(world, tmp_path,
     assert jx["accelerated"].sum() > 0
     if world == 2:                     # the tiny transformer, same call
         losses, limits, accel, sd_out = spawn_ranks(
-            W.transformer_rank, 2, tiny_params[0], 3, TLR,
+            W.transformer_rank, 2, tiny_params[0], 3, TLR, device="cpu",
             timeout=TIMEOUT)[0]
         np.testing.assert_allclose(losses, jx["t_losses"], rtol=1e-5)
         np.testing.assert_array_equal(accel, jx["t_accel"])
@@ -298,7 +299,7 @@ def test_parity_problem_matches_jax_data_parallel(world, tmp_path,
 # ---------------------------------------------------------------------------
 @pytest.fixture(scope="module")
 def fed():
-    return spawn_ranks(W.feeds_rank, 2, 32, timeout=TIMEOUT)
+    return spawn_ranks(W.feeds_rank, 2, 32, device="cpu", timeout=TIMEOUT)
 
 
 @pytest.mark.parametrize("mb", [1, 2], ids=["micro-1", "micro-2"])

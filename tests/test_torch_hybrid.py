@@ -133,14 +133,14 @@ def start_dicts(tmp_path_factory):
 def two_ranks(start_dicts):
     """Every two-rank leg of this file, one spawn (each rank a process)."""
     return spawn_ranks(W.hybrid_suite_rank, 2, start_dicts[False],
-                       start_dicts[True], timeout=TIMEOUT)
+                       start_dicts[True], device="cpu", timeout=TIMEOUT)
 
 
 @pytest.fixture(scope="module")
 def four_ranks(start_dicts):
     """Every four-rank leg of this file, one spawn."""
     return spawn_ranks(W.hybrid_suite_rank, 4, start_dicts[False],
-                       start_dicts[True], timeout=TIMEOUT)
+                       start_dicts[True], device="cpu", timeout=TIMEOUT)
 
 
 def test_hybrid_model1_bit_exact_vs_data_parallel(two_ranks):

@@ -38,7 +38,14 @@ def test_port_imports_no_jax_and_no_repro():
         "        'repro_torch.sharding.rules', 'repro_torch.sharding.ctx',\n"
         "        'repro_torch.distributed.hybrid_parity',\n"
         "        'repro_torch.distributed.multihost_parity',\n"
-        "        'repro_torch.train.zoo_parity'] + [\n"
+        "        'repro_torch.train.zoo_parity', 'repro_torch.fault',\n"
+        "        'repro_torch.fault.plan',\n"
+        "        'repro_torch.distributed.async_ps',\n"
+        "        'repro_torch.distributed.async_ps.errors',\n"
+        "        'repro_torch.distributed.async_ps.server',\n"
+        "        'repro_torch.distributed.async_ps.worker',\n"
+        "        'repro_torch.distributed.async_ps.coordinator',\n"
+        "        'repro_torch.distributed.async_ps.parity'] + [\n"
         "    'repro_torch.configs.' + a for a in ARCH_IDS]\n"
         "print('MISSING', [m for m in need if m not in sys.modules])\n"
         "print('BAD', bad, 'N', n)\n")
@@ -143,3 +150,95 @@ def test_launcher_resume_needs_checkpoint_dir():
     assert r.returncode != 0
     assert "--resume needs --checkpoint-dir" in r.stderr
     assert "done:" not in r.stdout
+
+
+# ---------------------------------------------------------------------------
+# --engine async-ps
+# ---------------------------------------------------------------------------
+ASYNC = TINY + ["--engine", "async-ps"]
+
+
+def test_async_flags_parse_with_the_references_defaults():
+    """The seven async-PS flags, with ``repro.launch.train``'s defaults."""
+    from repro_torch.launch import train as launcher
+    a = launcher.parse_args(["--model", "transformer"])
+    assert (a.workers, a.max_staleness, a.staleness_decay, a.elastic,
+            a.deadline, a.fault_plan, a.verify_pushes) == (
+        2, 0, "inverse", False, 120.0, None, False)
+    b = launcher.parse_args(
+        ["--model", "transformer", "--engine", "async-ps", "--workers", "3",
+         "--max-staleness", "1", "--staleness-decay", "exp:0.5",
+         "--elastic", "--deadline", "2.5", "--fault-plan", "crash@2:5",
+         "--verify-pushes"])
+    assert launcher.engine_of(b) == "async-ps"
+    assert (b.workers, b.max_staleness, b.staleness_decay, b.elastic,
+            b.deadline, b.fault_plan, b.verify_pushes) == (
+        3, 1, "exp:0.5", True, 2.5, "crash@2:5", True)
+
+
+def test_async_launcher_trains_on_cpu():
+    r = _run(["-m", "repro_torch.launch.train", *ASYNC, "--steps", "8",
+              "--workers", "2", "--max-staleness", "1"])
+    assert r.returncode == 0, r.stderr
+    lines = r.stdout.splitlines()
+    assert lines[0].startswith("arch=paper-transformer-tiny engine=async-ps "
+                               "workers=2 max_staleness=1"), r.stdout
+    assert any(l.startswith("push    1 w") for l in lines), r.stdout
+    stale = [l for l in lines if l.startswith("staleness: mean_tau=")]
+    assert stale and stale[0].endswith("bound=3"), r.stdout
+    assert any(l.startswith("done: 8 steps") for l in lines), r.stdout
+
+
+@pytest.mark.parametrize("extra,match", [
+    (["--chunk-steps", "2"], "do not compose with --engine async-ps"),
+    (["--device-ring"], "do not compose with --engine async-ps"),
+    (["--schedule", "loss-prop"], "--schedule does not compose"),
+    (["--model-parallel", "2"], "--model-parallel composes with --engine "
+                                "hybrid"),
+], ids=["chunk-steps", "device-ring", "schedule", "model-parallel"])
+def test_async_launcher_refuses_what_the_reference_refuses(extra, match):
+    from repro_torch.launch import train as launcher
+    with pytest.raises(SystemExit, match=match):
+        launcher.main(ASYNC + ["--steps", "2"] + extra)
+
+
+def test_async_launcher_refuses_an_encdec_config():
+    from repro_torch.launch import train as launcher
+    with pytest.raises(SystemExit, match="supports decoder-only/cnn"):
+        launcher.main(["--device", "cpu", "--arch", "whisper_medium",
+                       "--reduced", "--engine", "async-ps", "--steps", "2"])
+
+
+def test_async_obs_dir_writes_counters_and_events(tmp_path):
+    """``--obs-dir``: the push records as SPC steps, ``async_ps/pushes``,
+    the τ and push-commit histograms, and the eviction and crash events
+    of an elastic run; the JSONL is valid."""
+    from repro_torch.launch import train as launcher
+    from repro_torch.obs import read_jsonl, validate_record
+    res = launcher.main(ASYNC + ["--steps", "8", "--workers", "2",
+                                 "--max-staleness", "1", "--elastic",
+                                 "--deadline", "2", "--fault-plan",
+                                 "crash@1:2", "--obs-dir", str(tmp_path)])
+    recs = read_jsonl(str(tmp_path / "metrics.p0.jsonl"))
+    assert not [e for r in recs for e in validate_record(r)]
+    names = {(r["kind"], r["name"]) for r in recs}
+    assert ("counter", "async_ps/pushes") in names
+    assert ("histogram", "async_ps/tau") in names
+    assert ("histogram", "async_ps/push_commit_s") in names
+    assert ("event", "async_ps.evict") in names
+    assert ("event", "async_ps.crash") in names
+    pushes = [r for r in recs if r["kind"] == "counter"
+              and r["name"] == "async_ps/pushes"]
+    assert pushes[-1]["total"] == len(res["records"]) == 6
+    assert res["obs"]["reconciled"] is True, res["obs"]
+
+
+def test_spawn_ranks_defaults_to_the_card():
+    """``launch.env.spawn_ranks`` runs its ranks on the card unless
+    ``device="cpu"`` is passed; without a card the default raises before
+    any rank starts."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the no-CUDA refusal; this machine has a card")
+    from repro_torch.launch.env import spawn_ranks
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        spawn_ranks(print, 1)

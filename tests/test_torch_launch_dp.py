@@ -10,8 +10,8 @@ writes the checkpoints, rank 1 validates them, and both resume from them;
 a ``--batch`` the ranks do not divide exits 1; ``--model-parallel 2`` on
 one rank exits with the mesh's ``MeshError`` (the reference's wording),
 with ``--engine data-parallel`` with the reference's refusal, and
-``--engine async-ps`` exits naming its slice. Every process is joined
-with a timeout."""
+``--engine async-ps --chunk-steps 2`` exits with the reference's
+refusal. Every process is joined with a timeout."""
 import os
 import socket
 import subprocess
@@ -140,7 +140,8 @@ def test_batch_not_divisible_by_the_ranks_exits_1():
     (["--engine", "data-parallel", "--model-parallel", "2"],
      "--model-parallel composes with --engine hybrid, not --engine "
      "data-parallel"),
-    (["--engine", "async-ps"], "async-PS slice")],
+    (["--engine", "async-ps", "--chunk-steps", "2"],
+     "do not compose with --engine async-ps")],
     ids=["hybrid-tp", "data-parallel-tp", "async-ps"])
 def test_engines_not_ported_name_their_slice(args, match, capsys):
     with pytest.raises(SystemExit, match=match):

@@ -58,7 +58,7 @@ def test_explicit_pod_must_match_process_count():
 
 
 def test_pod_mesh_over_two_nodes_is_pod_major():
-    out = spawn_ranks(W.pod_mesh_rank, 4, timeout=TIMEOUT)
+    out = spawn_ranks(W.pod_mesh_rank, 4, device="cpu", timeout=TIMEOUT)
     for r, (names, shape, axes, block, grank, gsize, grid) in enumerate(out):
         assert names == ("pod", "data", "model") and shape == (2, 2, 1)
         assert axes == ("pod", "data")
