@@ -110,7 +110,11 @@ its full forward; ``train_and_serve`` serves while a trainer child
 publishes snapshots, hot-swapping them between decode steps.
 ``--serve-only`` runs the device line and the serving phases alone,
 ``--async-only`` the device line, the build, ``train`` and the async
-phases. Each phase prints one JSON line; the last two lines are the
+phases. ``analysis`` holds the analysis tier's meta-device count of one
+``paper-transformer`` base evaluation against the card's own run of it
+(FLOPs, launches, device time against the roofline's compute time, peak
+memory); ``--analysis-only`` runs the device line, the build, ``train``
+and ``analysis``. Each phase prints one JSON line; the last two lines are the
 kernels summary and ``{"ok": true, "device": {...}}``.
 
 Nothing is caught: any failure exits nonzero before the last line. Without
@@ -258,18 +262,6 @@ def ssd_inputs(b, S, nh, hd, G, ds, dtype, seed=0, dt_shift=0.0):
             xBC[..., di + G * ds:].reshape(b, S, G, ds))
 
 
-def live_pairs(S: int, causal: bool, window) -> int:
-    """(query, key) pairs the mask keeps, per (batch, head)."""
-    q = np.arange(S)[:, None]
-    k = np.arange(S)[None, :]
-    keep = np.ones((S, S), bool)
-    if causal:
-        keep &= k <= q
-    if window is not None:
-        keep &= k > q - window
-    return int(keep.sum())
-
-
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -405,9 +397,9 @@ def check_xent(shape, dtype, tied=False, timed=False) -> dict:
            **compare(out, xent_plain(h, w, y, V),
                      TOLERANCES["fused_xent"][DTYPE_NAME[dtype]])}
     if timed:
+        from repro_torch.kernels.fused_xent.kernel import cost
         y64 = y.long()
-        ops = 2.0 * N * d * Vp
-        nbytes = (N * d + d * Vp) * h.element_size() + N * 4 + N * 4
+        ops, nbytes = cost(N, d, Vp, dtype)
         res["bound_ms"], res["bound_by"] = bound_ms(ops, nbytes, dtype)
         res["kernel_ms"] = cuda_ms(lambda: fused_xent(h, w, y, V))
         res["plain_ms"] = cuda_ms(lambda: xent_plain(h, w, y, V))
@@ -436,8 +428,8 @@ def check_attn(shape, dtype, causal=True, window=None, timed=False) -> dict:
            **compare(out, attention_plain(q, k, v, causal=causal, window=window),
                      TOLERANCES["flash_attention"][DTYPE_NAME[dtype]])}
     if timed:
-        ops = 4.0 * B * H * hd * live_pairs(S, causal, window)
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        from repro_torch.kernels.flash_attention.kernel import cost
+        ops, nbytes = cost(B, S, S, H, K, hd, dtype, causal, window)
         res["bound_ms"], res["bound_by"] = bound_ms(ops, nbytes, dtype)
         res["kernel_ms"] = cuda_ms(
             lambda: flash_attention(q, k, v, causal=causal, window=window))
@@ -486,15 +478,8 @@ def check_ssd(shape, dtype, timed=False, dt_shift=0.0) -> dict:
                (p["max_abs"] for p in parts))),
            "rtol": tol[0], "atol": tol[1], "ok": all(p["ok"] for p in parts)}
     if timed:
-        esz = x.element_size()
-        # the function's own work, whatever computes it: live (i >= j)
-        # pairs of 2(ds + hd) operations (C·Bᵀ counted for every head), then
-        # 2·cl·hd·ds for the state, per (chunk, head). The bf16 kernel
-        # computes C·Bᵀ once per group, about half of this.
-        ops = N * nh * (cl * (cl + 1) / 2 * 2 * (ds + hd) + 2 * cl * hd * ds)
-        nbytes = ((N * cl * nh * hd + 2 * N * cl * G * ds) * esz      # x, B, C
-                  + (N * cl * nh + nh) * 4                              # dt, A
-                  + (N * cl * nh * hd + N * nh * hd * ds + N * nh) * 4)  # outputs
+        from repro_torch.kernels.ssd_scan.kernel import cost
+        ops, nbytes = cost(N, cl, nh, hd, G, ds, dtype)
         res["bound_ms"], res["bound_by"] = bound_ms(ops, nbytes, dtype)
         res["kernel_ms"] = cuda_ms(lambda: ssd_intra_chunk(*ins))
         res["plain_ms"] = cuda_ms(lambda: ssd_intra_chunk_plain(*ins))
@@ -1964,32 +1949,21 @@ def phase_dp2(per_step: dict):
         raise SystemExit("dp2: the two gloo ranks failed a check (above)")
 
 
-def phase_dp_parity():
+def dp_parity_legs() -> list:
     """``python -m repro_torch.distributed.parity`` on the card: two ranks
     over gloo and one NCCL rank, each within the reference's 1e-5, with
     accelerations and no decision mismatch (its exit code 0)."""
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    for procs, backend in ((2, "gloo"), (1, "nccl")):
-        t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, "-m",
-                            "repro_torch.distributed.parity", "--procs",
-                            str(procs), "--device", "cuda", "--backend",
-                            backend], cwd=ROOT, env=env, capture_output=True,
-                           text=True, timeout=600)
-        line = next((l for l in r.stdout.splitlines()
-                     if l.startswith("parity devices=")), "")
-        fields = dict(kv.split("=", 1) for kv in line.split()
-                      if "=" in kv)
-        emit("dp_parity", procs=procs, backend=backend, rc=r.returncode,
-             line=line, seconds=time.perf_counter() - t0,
-             **{k: fields.get(k) for k in ("accelerations", "accel_mismatch",
-                                           "max_param", "max_psi_bar",
-                                           "max_limit",
-                                           "replicas_identical")})
-        if r.returncode != 0 or not line.endswith("-> OK"):
-            raise SystemExit(f"dp_parity --procs {procs} --backend "
-                             f"{backend}: rc {r.returncode}\n"
-                             f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    return [("dp_parity", "repro_torch.distributed.parity",
+             ["--procs", str(procs), "--device", "cuda", "--backend", backend],
+             "parity devices=", {"procs": procs, "backend": backend})
+            for procs, backend in ((2, "gloo"), (1, "nccl"))]
+
+
+def dp_parity_fields(line: str) -> dict:
+    fields = dict(kv.split("=", 1) for kv in line.split() if "=" in kv)
+    return {k: fields.get(k) for k in ("accelerations", "accel_mismatch",
+                                       "max_param", "max_psi_bar",
+                                       "max_limit", "replicas_identical")}
 
 
 # ---------------------------------------------------------------------------
@@ -2095,59 +2069,93 @@ def phase_hybrid(per_step: dict) -> dict:
     return {k: ranks[0]["device_launches"][k] for k in DP_KERNELS}
 
 
-def run_harness(module: str, args: list, ok_prefix: str,
-                timeout: int = 600) -> dict:
-    """``python -m MODULE ARGS`` on the card -> its last line's fields;
-    a nonzero exit or a line that does not end in ``-> OK`` fails."""
+def start_harness(module: str, args: list) -> dict:
+    """Start ``python -m MODULE ARGS`` on the card, its output to
+    temporary files (a pipe left unread could stall it)."""
+    import tempfile
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", module] + args, cwd=ROOT,
-                       env=env, capture_output=True, text=True,
-                       timeout=timeout)
-    line = next((l for l in reversed(r.stdout.splitlines())
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, "-m", module] + args, cwd=ROOT,
+                            env=env, stdout=out, stderr=err, text=True)
+    return {"proc": proc, "out": out, "err": err, "module": module,
+            "args": args, "t0": time.perf_counter()}
+
+
+def finish_harness(h: dict, ok_prefix: str, timeout: int = 600) -> dict:
+    """Join a started harness (killed past ``timeout`` seconds from its
+    start) -> its last ``ok_prefix`` line's fields; a nonzero exit or a
+    line that does not end in ``-> OK`` fails."""
+    proc = h["proc"]
+    try:
+        proc.wait(timeout=max(1.0, timeout - (time.perf_counter() - h["t0"])))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    h["out"].seek(0)
+    h["err"].seek(0)
+    stdout, stderr = h["out"].read(), h["err"].read()
+    line = next((l for l in reversed(stdout.splitlines())
                  if l.startswith(ok_prefix)), "")
-    out = {"args": args, "rc": r.returncode, "line": line,
-           "seconds": time.perf_counter() - t0}
-    if r.returncode != 0 or not line.endswith("-> OK"):
-        raise SystemExit(f"{module} {args}: rc {r.returncode}\n"
-                         f"{r.stdout[-3000:]}\n{r.stderr[-4000:]}")
-    return out
+    res = {"args": h["args"], "rc": proc.returncode, "line": line,
+           "seconds": time.perf_counter() - h["t0"]}
+    if proc.returncode != 0 or not line.endswith("-> OK"):
+        raise SystemExit(f"{h['module']} {h['args']}: rc {proc.returncode}\n"
+                         f"{stdout[-3000:]}\n{stderr[-4000:]}")
+    return res
 
 
-def phase_hybrid_parity():
+def run_legs(legs: list) -> None:
+    """The harness legs ``(phase, module, args, ok_prefix, fields)``, each
+    a fresh process on toy problems, all started at once and joined in
+    order (a leg's ``seconds`` include the others' share of the card and
+    the host); one line per leg, then any failure raises."""
+    started = [(leg, start_harness(leg[1], leg[2])) for leg in legs]
+    failures = []
+    for (phase, module, args, ok_prefix, fields), h in started:
+        try:
+            res = finish_harness(h, ok_prefix)
+        except SystemExit as e:
+            failures.append(str(e))
+            continue
+        if phase == "dp_parity":
+            res.update(dp_parity_fields(res["line"]))
+        emit(phase, **fields, **res)
+    if failures:
+        raise SystemExit("\n".join(failures))
+
+
+def hybrid_parity_legs() -> list:
     """``repro_torch.distributed.hybrid_parity`` on the card: two gloo ranks
     (the bit-exact ``hybrid(1,1)``, ``hybrid(n,1)``, ``hybrid(1,n)`` legs,
     ``sharded-tp(model=2)`` within 1e-5, ``data-parallel``; the fused legs
     need NCCL and are left out there), then one NCCL rank (the fused
     ``chunked`` and ``sched-fcpr`` legs, captured)."""
-    for procs, backend in ((2, "gloo"), (1, "nccl")):
-        emit("hybrid_parity", backend=backend, **run_harness(
-            "repro_torch.distributed.hybrid_parity",
-            ["--procs", str(procs), "--device", "cuda", "--backend", backend,
-             "--verbose"], "hybrid-parity"))
+    return [("hybrid_parity", "repro_torch.distributed.hybrid_parity",
+             ["--procs", str(procs), "--device", "cuda", "--backend", backend,
+              "--verbose"], "hybrid-parity", {"backend": backend})
+            for procs, backend in ((2, "gloo"), (1, "nccl"))]
 
 
-def phase_multihost_parity():
+def multihost_parity_legs() -> list:
     """``repro_torch.distributed.multihost_parity`` on the card: four gloo
     ranks as two nodes on ``(pod=2, data=2)`` against four on
     ``(data=4)``, the reference's dim-6 problem, bit for bit (the per-step
     leg; the fused legs need NCCL), the stripes' union the single-node
     epoch."""
-    emit("multihost_parity", **run_harness(
-        "repro_torch.distributed.multihost_parity",
-        ["--procs", "4", "--device", "cuda", "--backend", "gloo",
-         "--verbose"], "multihost-parity"))
+    return [("multihost_parity", "repro_torch.distributed.multihost_parity",
+             ["--procs", "4", "--device", "cuda", "--backend", "gloo",
+              "--verbose"], "multihost-parity", {})]
 
 
-def phase_zoo_parity():
+def zoo_parity_legs() -> list:
     """``repro_torch.train.zoo_parity`` on the card at the tiny tier: the
     per-step against fused legs (CUDA graphs) bit for bit on the three
     bodies, the frozen-LR control, ``sched-fcpr``, the hybrid ``(1, 1)``
     leg over one NCCL rank, and the kernel leg: ``--kernels cuda`` against
     ``reference`` in f32 within ``numerics.TOLERANCES``."""
-    emit("zoo_parity", **run_harness(
-        "repro_torch.train.zoo_parity",
-        ["--device", "cuda", "--procs", "1", "--verbose"], "zoo-parity"))
+    return [("zoo_parity", "repro_torch.train.zoo_parity",
+             ["--device", "cuda", "--procs", "1", "--verbose"], "zoo-parity",
+             {})]
 
 
 # ---------------------------------------------------------------------------
@@ -2468,16 +2476,16 @@ def phase_async_faults():
                          f"{proc.returncode}:\n{so[-2000:]}\n{se[-3000:]}")
 
 
-def phase_async_parity():
+def async_parity_legs() -> list:
     """``repro_torch.distributed.async_ps.parity`` on the card: one worker
     bit for bit with the per-step engine, then two workers at staleness 2
     within ψ̄ tolerance 0.25 and τ within its bound."""
-    for args in (["--device", "cuda"],
-                 ["--device", "cuda", "--workers", "2", "--max-staleness",
-                  "2", "--steps", "64", "--tol", "0.25"]):
-        emit("async_parity", **run_harness(
-            "repro_torch.distributed.async_ps.parity", args,
-            "async-ps parity"))
+    return [("async_parity", "repro_torch.distributed.async_ps.parity", args,
+             "async-ps parity", {})
+            for args in (["--device", "cuda"],
+                         ["--device", "cuda", "--workers", "2",
+                          "--max-staleness", "2", "--steps", "64", "--tol",
+                          "0.25"])]
 
 
 # ---------------------------------------------------------------------------
@@ -3066,6 +3074,162 @@ def phase_train_and_serve():
         raise SystemExit(f"train_and_serve: {out['compile_counts']}")
 
 
+ANALYSIS_PEAK_BAND = (0.9, 1.1)           # card peak / meta peak, stated before the run
+ANALYSIS_STOP = 5                         # Alg. 2 trips: the dry-run's --isgd-stop
+
+
+def phase_analysis(per_step: dict) -> dict:
+    """The analysis tier (``repro_torch.analysis``) held against the card:
+    one ISGD train step of ``paper-transformer`` base at the ``train``
+    run's batch shape (8 × 1024), made by the dry-run's own builder
+    (``launch.dryrun.build_step``: the hybrid engine's device-form step,
+    parameters placed by ``hybrid_params_placement``) at mesh (data=1,
+    model=1) over a one-rank NCCL group, and run in analysis mode: the
+    accelerate branch and exactly ``ANALYSIS_STOP`` Alg. 2 trips, masked.
+    The builder makes the step twice, on meta tensors and on the card.
+    ``dryrun.count_step`` counts the meta one, as the CLI does; the card
+    runs the other:
+
+      (a) the meta count's aten FLOPs (the kernels' ``cost()`` set aside)
+          equal ``FlopCounterMode``'s count of the step on the card, which
+          cannot see the ctypes kernels;
+      (b) the meta count's kernel launches equal the device counters and
+          (1 + stop) × the evaluation's (1 ``fused_xent``, 32
+          ``flash_attention``);
+      (c) the step's device time (its kernels' time from
+          ``torch.profiler``) is at least the roofline's ``compute_s`` (no
+          card beats its peak); its ratio to max(compute_s, memory_s) is
+          printed, not gated (the bytes are eager and unfused, and the
+          50 MB L2 holds much of them);
+      (d) the meta peak (the argument bytes, the engine's buffers and the
+          step's live-bytes peak) against the card's
+          ``max_memory_allocated`` of the step, within
+          ``ANALYSIS_PEAK_BAND``; the argument bytes against what the card
+          holds before the step.
+
+    The one-rank reduction links no card: the count records no collective,
+    which is checked too. Raises on any failure."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.analysis import analysis_mode, roofline
+    from repro_torch.configs import InputShape, zoo_config
+    from repro_torch.kernels import launch_count
+    from repro_torch.launch import dryrun, env
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    t0 = time.perf_counter()
+    cfg = zoo_config("transformer", "base")
+    shape = InputShape("smoke_8x1024", 1024, 8, "train")
+    tokens = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, size=(shape.global_batch, shape.seq_len)
+    ).astype(np.int32)
+    per_eval = {k: per_step["per_eval"][k] for k in DEVICE_KERNELS}
+    expect = {k: (1 + ANALYSIS_STOP) * n for k, n in per_eval.items()}
+
+    with env.local_group("cuda", "nccl"):
+        mesh = make_host_mesh(1, device="cuda", backend="nccl")
+        mesh_name = dryrun._mesh_name(mesh)
+        meta = dryrun.build_step(build_model(cfg, kernels="cuda",
+                                             device="meta"),
+                                 mesh, shape, isgd_stop=ANALYSIS_STOP)
+        c, t_count = dryrun.count_step(meta)
+        del meta
+        predicted = {k: c.launches.get(k, 0) for k in DEVICE_KERNELS}
+
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        card = dryrun.build_step(
+            build_model(cfg, kernels="cuda", device="cuda"), mesh, shape,
+            isgd_stop=ANALYSIS_STOP,
+            batch={"tokens": torch.from_numpy(tokens).cuda()})
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - base
+
+        def step():
+            with analysis_mode():
+                card.run()
+
+        step()                                       # warm (cuBLAS, loads)
+        torch.cuda.synchronize()
+        with FlopCounterMode(display=False) as fcm:
+            step()
+        card_flops = fcm.get_total_flops()
+        launch_count.enable("cuda", DEVICE_KERNELS)
+        step()
+        torch.cuda.synchronize()
+        device_launches = launch_count.read()
+        launch_count.disable()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step()
+        torch.cuda.synchronize()
+        card_peak = torch.cuda.max_memory_allocated() - base
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        ms = sum(r[0] for r in device_rows(prof)) / 1e3
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        step()
+        b.record()
+        b.synchronize()
+        wall_ms = a.elapsed_time(b)
+        del card, step
+    torch.cuda.empty_cache()
+
+    rl = roofline.analyze(c, arch=cfg.name, shape=shape.name,
+                          mesh_name=mesh_name, chips=1,
+                          model_flops_per_device=roofline.model_flops(
+                              cfg, shape, 1))
+    compute_ms, memory_ms = rl.compute_s * 1e3, rl.memory_s * 1e3
+    meta_peak = c.arg_bytes + c.buffer_bytes + c.temp_peak
+    res = {
+        "model": cfg.name, "batch": [shape.global_batch, shape.seq_len],
+        "mesh": mesh_name, "backend": "nccl", "isgd_stop": ANALYSIS_STOP,
+        "hw": roofline.H100_SXM["name"],
+        "meta_count_s": t_count, "seconds": time.perf_counter() - t0,
+        "aten_flops_meta": c.aten_flops, "aten_flops_card": card_flops,
+        "kernel_flops_meta": c.kernel_flops,
+        "elementwise_flops_meta": c.elementwise_flops,
+        "flops_by_dtype_meta": dict(c.flops_by_dtype),
+        "bytes_meta": c.bytes, "collectives_meta": len(c.collectives),
+        "launches_meta": predicted, "launches_expected": expect,
+        "launches_card": {k: device_launches.get(k, 0) for k in predicted},
+        "ms_card": ms, "event_ms_card": wall_ms,
+        "compute_ms": compute_ms, "memory_ms": memory_ms,
+        "ms_over_compute": ms / compute_ms,
+        "ms_over_roofline": ms / max(compute_ms, memory_ms),
+        "arg_bytes_meta": c.arg_bytes, "buffer_bytes_meta": c.buffer_bytes,
+        "held_bytes_card": held, "held_before_step_card": before - base,
+        "temp_peak_meta": c.temp_peak,
+        "peak_bytes_meta": meta_peak, "peak_bytes_card": card_peak,
+        "peak_card_over_meta": card_peak / meta_peak,
+        "peak_band": list(ANALYSIS_PEAK_BAND),
+    }
+    emit("analysis", **res)
+    if card_flops != c.aten_flops:
+        raise SystemExit(f"analysis (a): meta aten FLOPs {c.aten_flops} != "
+                         f"the card's FlopCounterMode {card_flops}")
+    if not (res["launches_card"] == predicted == expect):
+        raise SystemExit(f"analysis (b): launches predicted {predicted}, "
+                         f"(1 + stop) × an evaluation's {expect}, counted "
+                         f"on the card {res['launches_card']}")
+    if ms < compute_ms:
+        raise SystemExit(f"analysis (c): the card took {ms} ms, below the "
+                         f"roofline's compute time {compute_ms} ms")
+    lo, hi = ANALYSIS_PEAK_BAND
+    if not lo <= res["peak_card_over_meta"] <= hi:
+        raise SystemExit(f"analysis (d): card peak {card_peak} against the "
+                         f"meta peak {meta_peak}, outside {ANALYSIS_PEAK_BAND}")
+    if c.collectives:
+        raise SystemExit(f"analysis: a one-rank mesh recorded "
+                         f"{len(c.collectives)} collectives")
+    return res
+
+
 def async_phases(per_step: dict) -> dict:
     """The async parameter-server phases -> ``async_ps``'s device
     launches."""
@@ -3075,7 +3239,7 @@ def async_phases(per_step: dict) -> dict:
     launches = ref["device_launches"]
     del ref
     phase_async_faults()
-    phase_async_parity()
+    run_legs(async_parity_legs())
     return launches
 
 
@@ -3106,6 +3270,10 @@ def main():
         phase_device()
         phase_build()
         return async_phases(phase_train("transformer"))
+    if sys.argv[1:2] == ["--analysis-only"]:
+        phase_device()
+        phase_build()
+        return phase_analysis(phase_train("transformer"))
     smi = phase_device()
     phase_build()
     main_checks = phase_checks()
@@ -3131,12 +3299,12 @@ def main():
     phase_resume(phase_sched(train["transformer"], chunked["transformer"]))
     phase_dp(train["transformer"], chunked["transformer"])
     phase_dp2(train["transformer"])
-    phase_dp_parity()
     hybrid = phase_hybrid(train["transformer"])
-    phase_hybrid_parity()
-    phase_multihost_parity()
-    phase_zoo_parity()
+    # the parity harnesses are independent toy runs: started together
+    run_legs(dp_parity_legs() + hybrid_parity_legs()
+             + multihost_parity_legs() + zoo_parity_legs())
     async_launches = async_phases(train["transformer"])
+    phase_analysis(train["transformer"])
     serve_phases()
     kernels = []
     for name, path, replaces in (

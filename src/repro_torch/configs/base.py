@@ -6,8 +6,9 @@ the fields of every family (dense, moe, ssm, hybrid, encdec, vlm), the
 layer predicates the stack plan reads (``block_size``, ``_is_moe_layer``,
 ``_is_attn_layer``), the analytic ``param_count`` and ``reduced()``, the
 CPU-size variant of the same family. ``ARCH_IDS`` and ``get_config``
-resolve the ten assigned architectures against ``repro_torch.configs``.
-The input-shape tables of the dry-run matrix are not ported yet.
+resolve the ten assigned architectures against ``repro_torch.configs``;
+``InputShape``, ``INPUT_SHAPES``, ``LONG_CONTEXT_ARCHS`` and
+``shape_applicable`` are the dry-run matrix (``launch.dryrun``).
 """
 from __future__ import annotations
 
@@ -208,6 +209,24 @@ class ModelConfig:
         return dataclasses.replace(self, name=self.name + "-smoke", **kw)
 
 
+# ---------------------------------------------------------------------------
+# Input shapes (assigned)
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str          # 'train' | 'prefill' | 'decode'
+
+
+INPUT_SHAPES = {
+    "train_4k":    InputShape("train_4k",    4_096,   256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768,   32, "prefill"),
+    "decode_32k":  InputShape("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   InputShape("long_500k",  524_288,    1, "decode"),
+}
+
 ARCH_IDS = [
     "internlm2_1_8b", "deepseek_v2_lite_16b", "whisper_medium", "jamba_v0_1_52b",
     "starcoder2_3b", "deepseek_coder_33b", "internvl2_2b", "mamba2_2_7b",
@@ -220,3 +239,15 @@ def get_config(arch: str) -> ModelConfig:
     as '_')."""
     arch = arch.replace("-", "_").replace(".", "_")
     return importlib.import_module(f"repro_torch.configs.{arch}").CONFIG
+
+
+# archs allowed to lower long_500k (sub-quadratic / windowed decode)
+LONG_CONTEXT_ARCHS = {"jamba_v0_1_52b", "mamba2_2_7b", "gemma3_12b", "mixtral_8x22b"}
+
+
+def shape_applicable(cfg: ModelConfig, shape: InputShape) -> tuple[bool, str]:
+    """Whether (arch, shape) is part of the dry-run matrix; reason if not."""
+    arch = cfg.name.replace("-", "_").replace(".", "_")
+    if shape.name == "long_500k" and arch not in LONG_CONTEXT_ARCHS:
+        return False, "full-attention arch: long_500k skipped per DESIGN.md §4"
+    return True, ""

@@ -22,7 +22,12 @@ buffers are updated in place, and Alg. 2 is ``stop`` unrolled trips, trip
 i running where ``live_i = live_{i-1} & (ψ_{i-1} > limit)`` with
 ``live_0 = accelerate``. Each conditional part goes through ``run_if``:
 while the chunked engine builds its CUDA graph, an IF node of the graph,
-elsewhere a host ``if``, so the CPU runs the same logic.
+elsewhere a host ``if``, so the CPU runs the same logic. Under
+``analysis.analysis_mode()`` every body runs, the accelerate branch and all
+``stop`` trips (the reference's convergence-masked loop, its cost upper
+bound), and each trip's writes are masked by its ``live`` flag, so the
+numbers stay the normal step's bit for bit; this is also the form that runs
+on the meta device, where no predicate has a value to branch on.
 
 Every ``loss_and_grad`` evaluation, the base step's and each Alg. 2
 trip's, goes through ``reduce_ctx.wrap_loss_and_grad`` (``core.reduce``):
@@ -41,6 +46,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch.analysis.mode import in_analysis_mode
 from repro_torch.core import control
 from repro_torch.core.reduce import LOCAL, ReduceCtx
 from repro_torch.obs.timing import named_scope
@@ -88,11 +94,15 @@ class ISGDConfig:
 
 
 @torch.no_grad()
-def _proximal_update(params, grads, w0, scale, zeta, epsilon, n_w):
+def _proximal_update(params, grads, w0, scale, zeta, epsilon, n_w,
+                     live=None):
+    """One Alg. 2 descent step, in place; where ``live`` (a 0-d bool
+    tensor) is given, a weight takes its new value only where it holds."""
     for w, g, w0i in zip(params, grads, w0):
         d = (scale * g.to(torch.float32)
              + epsilon * (w.to(torch.float32) - w0i.to(torch.float32)) / n_w)
-        w.copy_((w.to(torch.float32) - zeta * d).to(w.dtype))
+        new = (w.to(torch.float32) - zeta * d).to(w.dtype)
+        w.copy_(new if live is None else torch.where(live, new, w))
 
 
 def solve_subproblem(loss_and_grad, params, limit, entry_loss, lr,
@@ -204,7 +214,11 @@ def run_if(pred, body: Callable):
     ``kernels.graph_if.IfBodies`` pass), ``body`` becomes an IF node of the
     graph: the device tests ``pred`` at each replay and the host reads
     nothing. Elsewhere (the CPU, an eager run on the card) it is ``if
-    bool(pred)``."""
+    bool(pred)``. In analysis mode ``body()`` runs whatever ``pred`` holds
+    (module doc)."""
+    if in_analysis_mode():
+        body()
+        return
     if pred.is_cuda:
         from repro_torch.kernels import graph_if
         bodies = graph_if.active()
@@ -287,9 +301,12 @@ def isgd_step_device(rule: UpdateRule, cfg: ISGDConfig,
 
     def trip():
         (psi, _), g = loss_and_grad(params, batch)
+        # in analysis mode every trip runs: mask its writes by ``live``
+        live = trips.live if in_analysis_mode() else None
         _proximal_update(params, g, trips.w0, psi - trips.limit, zeta,
-                         cfg.epsilon, n_w)
-        trips.psi.copy_(psi)
+                         cfg.epsilon, n_w, live)
+        trips.psi.copy_(psi if live is None
+                        else torch.where(live, psi, trips.psi))
 
     # host-only span: in a capture it adds no node to the graph
     with named_scope("obs/accelerate"):

@@ -34,6 +34,11 @@ the bucket), so a CUDA graph that captured a reduction (the fused engine)
 holds valid addresses at every replay. The gradients an evaluation returns
 are views of (or, for a bf16 leaf, casts from) the bucket: they are valid
 until the next reduction, which is all a step needs.
+
+In analysis mode (``repro_torch.analysis``) every gather records itself,
+an all-gather with its result and operand bytes over its group's ranks
+(``analysis.count.collective``); ``axis_sum`` gathers through
+``gather_list`` and so records once.
 """
 from __future__ import annotations
 
@@ -41,6 +46,15 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
 import torch
+
+from repro_torch.analysis.mode import in_analysis_mode
+
+
+def _record_gather(x: torch.Tensor, world: int, group) -> None:
+    if in_analysis_mode():
+        from repro_torch.analysis import count
+        n = x.numel() * x.element_size()
+        count.collective("all-gather", world * n, n, count.group_ranks(group))
 
 
 def shard_sum(stacked: torch.Tensor, out: Optional[torch.Tensor] = None):
@@ -57,6 +71,7 @@ def gather_list(x: torch.Tensor, group) -> list:
     ``all_gather``, the one form gloo takes for CUDA tensors."""
     import torch.distributed as dist
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    _record_gather(x, len(parts), group)
     dist.all_gather(parts, x.contiguous(), group=group)
     return parts
 
@@ -208,6 +223,7 @@ class AxisReduce(ReduceCtx):
         """``out`` (world, *x.shape) <- x of every rank, in rank order. A
         failed collective raises."""
         import torch.distributed as dist
+        _record_gather(x, out.shape[0], self.group)
         if dist.get_backend(self.group) == "nccl":
             dist.all_gather_into_tensor(out, x, group=self.group)
         else:                       # gloo: the list form takes CUDA tensors

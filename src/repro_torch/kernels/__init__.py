@@ -2,7 +2,8 @@
 
 Each wrapper computes its plain version for a tensor on the CPU and, for a
 CUDA tensor, launches its kernel (built from ``csrc/`` by ``build.py``) or
-raises. ``<wrapper>.launches`` counts kernel launches and nothing else, on
+raises; on meta tensors it records its ``cost()`` (``repro_torch.analysis``)
+and runs nothing. ``<wrapper>.launches`` counts kernel launches and nothing else, on
 the host; ``launch_count`` also counts them on the device, where CUDA-graph
 replays count too.
 """

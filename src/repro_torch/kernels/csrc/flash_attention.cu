@@ -29,7 +29,7 @@
 //   * TMA descriptors are 4-D over (hd, heads, S, B) with the tensors' own
 //     byte strides, built on the host per call. Q tiles go into two
 //     buffers, so the next item's Q lands while this one runs; K and V
-//     tiles of TK keys (128, or 64 for hd = 128) stream through a ring of
+//     tiles of TK keys (128, or 64 for hd >= 128) stream through a ring of
 //     STAGES buffers guarded by full (TMA bytes) and empty (8 consumer
 //     warps) mbarriers, across items. Rows past S load as zeros; key
 //     columns >= Sk are masked.
@@ -57,6 +57,12 @@
 //   * Output: O / l in bf16 goes into the item's Q buffer in the TMA box
 //     layout and leaves by one TMA store per warpgroup (rows past S are
 //     dropped); the buffer is released once the store has read it.
+//   * hd = 256 (Gemma3): a 64 x 256 f32 O would take 128 of the 168
+//     registers a consumer thread has, and the kernel spills. So the host
+//     launches the kernel twice, each time for one 128-wide half of V and
+//     O (template DV = 128) with the whole 256-wide Q.K^T: S is computed
+//     twice, O and its registers are those of hd = 128. Those launches
+//     keep one Q buffer and three stages (208 KB of shared memory).
 //   * f32: CUDA cores, no TF32 (the `--precision f32` comparison path).
 //     hd/32 threads share a query row (one for hd = 16), each owning
 //     min(hd, 32) of its dimensions; K and V tiles staged in shared memory.
@@ -84,21 +90,26 @@ constexpr float NEG = -1e30f;
 constexpr int TQ = 128;      // query rows per work item (two consumer warpgroups)
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int HD> struct Tile {
-  static constexpr int TK = HD == 128 ? 64 : 128;     // keys per tile
+// HD: the width of q and k; DV: of v and o (DV < HD only for hd = 256,
+// one half of v a launch).
+template <int HD, int DV = HD> struct Tile {
+  static constexpr int TK = HD >= 128 ? 64 : 128;     // keys per tile
   static constexpr int CW = HD < 64 ? HD : 64;        // columns of one TMA box
-  static constexpr int NB = HD / CW;                  // boxes per tile row
+  static constexpr int NB = HD / CW;                  // Q and K boxes per tile row
+  static constexpr int NBV = DV / CW;                 // V and O boxes per tile row
   static constexpr int ROWB = CW * 2;                 // bytes of a box row
   static constexpr int SW = hopper::Swizzle<ROWB>::code;
-  static constexpr int STAGES = 4;     // >= 3: a warpgroup may run a tile ahead of the other
+  // >= 3: a warpgroup may run a tile ahead of the other
+  static constexpr int STAGES = DV < HD ? 3 : 4;
+  static constexpr int NQ = DV < HD ? 1 : 2;          // Q buffers
   static constexpr int QBOX = TQ * ROWB;              // bytes of one Q box
   static constexpr int KBOX = TK * ROWB;              // bytes of one K or V box
   static constexpr int Q_BYTES = NB * QBOX;
-  static constexpr int Q_OFF = 0;                     // two Q buffers
-  static constexpr int K_OFF = Q_OFF + 2 * Q_BYTES;
+  static constexpr int Q_OFF = 0;
+  static constexpr int K_OFF = Q_OFF + NQ * Q_BYTES;
   static constexpr int V_OFF = K_OFF + STAGES * NB * KBOX;
-  static constexpr int BAR_OFF = V_OFF + STAGES * NB * KBOX;
-  static constexpr int SMEM = BAR_OFF + (2 * STAGES + 4) * 8 + 1024;   // + alignment slack
+  static constexpr int BAR_OFF = V_OFF + STAGES * NBV * KBOX;
+  static constexpr int SMEM = BAR_OFF + (2 * STAGES + 2 * NQ) * 8 + 1024;   // + alignment slack
 };
 
 template <int N>
@@ -144,21 +155,22 @@ __device__ __forceinline__ Work work_item(int item, int n_qt, int H, int B, int 
 // sched[grid + 1 + sched[i]] .. sched[grid + 1 + sched[i + 1] - 1], in
 // that order (the host balances the blocks' lists). `to` maps the
 // contiguous (B, Sq, H, HD) output.
-template <int HD>
+template <int HD, int DV>
 __global__ void __launch_bounds__(384, 1)
 flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
                const int* __restrict__ sched, int B, int Sq, int Sk, int H, int KH, int causal,
                int window, float scale_log2) {
-  using T = Tile<HD>;
-  constexpr int TK = T::TK, CW = T::CW, NB = T::NB, ROWB = T::ROWB, STAGES = T::STAGES;
+  using T = Tile<HD, DV>;
+  constexpr int TK = T::TK, CW = T::CW, NB = T::NB, NBV = T::NBV, ROWB = T::ROWB;
+  constexpr int STAGES = T::STAGES, NQ = T::NQ;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (hopper::smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_s = base + T::Q_OFF, k_s = base + T::K_OFF, v_s = base + T::V_OFF;
   const uint32_t full = base + T::BAR_OFF;             // STAGES barriers: K/V tile landed
   const uint32_t empty = full + 8 * STAGES;            // STAGES barriers: K/V tile consumed
-  const uint32_t q_full = empty + 8 * STAGES;          // 2 barriers
-  const uint32_t q_empty = q_full + 16;                // 2 barriers
+  const uint32_t q_full = empty + 8 * STAGES;          // NQ barriers
+  const uint32_t q_empty = q_full + 8 * NQ;            // NQ barriers
   const int n_qt = (Sq + TQ - 1) / TQ;
   const int* order = sched + gridDim.x + 1;            // this block's items: order[k0 .. k1)
   const int k0 = sched[blockIdx.x], k1 = sched[blockIdx.x + 1];
@@ -168,7 +180,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
       hopper::mbar_init(full + 8 * s, 1);
       hopper::mbar_init(empty + 8 * s, 8);
     }
-    for (int s = 0; s < 2; ++s) {
+    for (int s = 0; s < NQ; ++s) {
       hopper::mbar_init(q_full + 8 * s, 1);
       hopper::mbar_init(q_empty + 8 * s, 8);
     }
@@ -184,8 +196,8 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
       for (int kk = k0, j = 0; kk < k1; ++kk, ++j) {
         const Work w = work_item(order[kk], n_qt, H, B, Sq, Sk, causal, window, TK);
         const int kvh = w.h / (H / KH);
-        const int qb = j & 1;
-        hopper::mbar_wait(q_empty + 8 * qb, ((j >> 1) & 1) ^ 1);
+        const int qb = j % NQ;
+        hopper::mbar_wait(q_empty + 8 * qb, ((j / NQ) & 1) ^ 1);
         hopper::mbar_expect_tx(q_full + 8 * qb, TQ * HD * 2);
 #pragma unroll
         for (int nb = 0; nb < NB; ++nb)
@@ -195,14 +207,15 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
           const int s = ring % STAGES;
           const int k0 = (w.kt0 + t) * TK;
           hopper::mbar_wait(empty + 8 * s, ((ring / STAGES) & 1) ^ 1);
-          hopper::mbar_expect_tx(full + 8 * s, 2 * TK * HD * 2);
+          hopper::mbar_expect_tx(full + 8 * s, TK * (HD + DV) * 2);
 #pragma unroll
-          for (int nb = 0; nb < NB; ++nb) {
+          for (int nb = 0; nb < NB; ++nb)
             hopper::tma_load_4d(k_s + (s * NB + nb) * T::KBOX, &tk, full + 8 * s, nb * CW,
                                 kvh, k0, w.b);
-            hopper::tma_load_4d(v_s + (s * NB + nb) * T::KBOX, &tv, full + 8 * s, nb * CW,
+#pragma unroll
+          for (int nb = 0; nb < NBV; ++nb)
+            hopper::tma_load_4d(v_s + (s * NBV + nb) * T::KBOX, &tv, full + 8 * s, nb * CW,
                                 kvh, k0, w.b);
-          }
         }
       }
     }
@@ -226,22 +239,22 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
   uint32_t q_wg = 0;
   int stored_qb = -1;              // Q buffer that thread 0's last O store reads
 
-  float acc[NB][CW / 2];
+  float acc[NBV][CW / 2];
   float m[2], l[2], corr[2];
   float sc[TK / 2];                // S of a tile, then its P in f32
   uint32_t pa[TK / 16][4];         // P in bf16, the A operand of P.V
 
   // Q of this CTA's j-th item: wait for it; -> the warpgroup's rows in smem
   auto q_rows = [&](int jj) {
-    hopper::mbar_wait(q_full + 8 * (jj & 1), (jj >> 1) & 1);
-    return q_s + (jj & 1) * T::Q_BYTES + wg * 64 * ROWB;
+    hopper::mbar_wait(q_full + 8 * (jj % NQ), (jj / NQ) & 1);
+    return q_s + (jj % NQ) * T::Q_BYTES + wg * 64 * ROWB;
   };
   auto start_item = [&]() {
-    qb = j & 1;
+    qb = j % NQ;
     qw0 = w.q0 + wg * 64;
     r0 = qw0 + warp * 16 + lane / 4;                   // this thread's rows r0, r0 + 8
 #pragma unroll
-    for (int nb = 0; nb < NB; ++nb)
+    for (int nb = 0; nb < NBV; ++nb)
 #pragma unroll
       for (int e = 0; e < CW / 2; ++e) acc[nb][e] = 0.f;
 #pragma unroll
@@ -356,7 +369,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
   // O *= corr: O rescaled for the latest softmax, with no P.V in flight
   auto rescale = [&]() {
 #pragma unroll
-    for (int nb = 0; nb < NB; ++nb)
+    for (int nb = 0; nb < NBV; ++nb)
 #pragma unroll
       for (int e = 0; e < CW / 2; ++e) acc[nb][e] *= corr[(e >> 1) & 1];
   };
@@ -365,13 +378,13 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
   auto issue_pv = [&](int t) {
     const int st = (ring + t) % STAGES;
 #pragma unroll
-    for (int nb = 0; nb < NB; ++nb) hopper::fence_regs(acc[nb]);
+    for (int nb = 0; nb < NBV; ++nb) hopper::fence_regs(acc[nb]);
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < TK / 16; ++kk)
 #pragma unroll
-      for (int nb = 0; nb < NB; ++nb) {
-        const uint64_t db = hopper::make_desc(v_s + (st * NB + nb) * T::KBOX + kk * 16 * ROWB,
+      for (int nb = 0; nb < NBV; ++nb) {
+        const uint64_t db = hopper::make_desc(v_s + (st * NBV + nb) * T::KBOX + kk * 16 * ROWB,
                                               T::KBOX, 8 * ROWB, T::SW);
         pv_mma<CW>(acc[nb], pa[kk], db);
       }
@@ -382,7 +395,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
   auto retire_pv = [&](int t) {
     hopper::wgmma_wait<0>();
 #pragma unroll
-    for (int nb = 0; nb < NB; ++nb) hopper::fence_regs(acc[nb]);
+    for (int nb = 0; nb < NBV; ++nb) hopper::fence_regs(acc[nb]);
 #pragma unroll
     for (int kk = 0; kk < TK / 16; ++kk) hopper::fence_regs(pa[kk]);
     if (lane == 0) hopper::mbar_arrive(empty + 8 * ((ring + t) % STAGES));
@@ -400,7 +413,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
       inv[i] = l[i] > 0.f ? 1.f / l[i] : 0.f;
     }
 #pragma unroll
-    for (int nb = 0; nb < NB; ++nb)
+    for (int nb = 0; nb < NBV; ++nb)
 #pragma unroll
       for (int e = 0; e < CW / 2; e += 2) {
         const int i = (e >> 1) & 1;
@@ -413,7 +426,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
     hopper::bar_sync(3 + wg, 128);
     if (tid == 0) {
 #pragma unroll
-      for (int nb = 0; nb < NB; ++nb)
+      for (int nb = 0; nb < NBV; ++nb)
         hopper::tma_store_4d(&to, q_wg + nb * T::QBOX, nb * CW, w.h, qw0, w.b);
       hopper::bulk_commit();
       stored_qb = qb;
@@ -593,34 +606,37 @@ int launch_f32(const Args& a, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// A 4-D TMA descriptor over (hd, heads, S, B) of a bf16 tensor whose outer
-// strides (elements) are s[0] (batch), s[1] (position), s[2] (head).
-template <int HD>
-bool attn_map(CUtensorMap* map, const void* p, const long long (&s)[3], int S, int heads, int B,
-              int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+// A 4-D TMA descriptor over (W, heads, S, B) of a bf16 tensor whose outer
+// strides (elements) are s[0] (batch), s[1] (position), s[2] (head), from
+// p + off elements: W columns of each row, in boxes min(W, 64) wide.
+template <int W>
+bool attn_map(CUtensorMap* map, const void* p, long long off, const long long (&s)[3], int S,
+              int heads, int B, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)W, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)s[2] * 2, (cuuint64_t)s[1] * 2,
                                  (cuuint64_t)s[0] * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)Tile<HD>::CW, 1, (cuuint32_t)rows, 1};
-  return hopper_host::encode_bf16(map, p, 4, dims, strides, box);
+  const cuuint32_t box[4] = {(cuuint32_t)(W < 64 ? W : 64), 1, (cuuint32_t)rows, 1};
+  return hopper_host::encode_bf16(map, static_cast<const char*>(p) + off * 2, 4, dims, strides,
+                                  box);
 }
 
-template <int HD>
-int launch_bf16(const Args& a, cudaStream_t st) {
-  using T = Tile<HD>;
+// One launch: o[..., off : off + DV] from q, k and v[..., off : off + DV].
+template <int HD, int DV>
+int launch_bf16(const Args& a, long long off, cudaStream_t st) {
+  using T = Tile<HD, DV>;
   CUtensorMap tq, tk, tv, to;
   const long long so[3] = {(long long)a.Sq * a.H * HD, (long long)a.H * HD, HD};
-  if (!attn_map<HD>(&tq, a.q, a.sq, a.Sq, a.H, a.B, TQ) ||
-      !attn_map<HD>(&tk, a.k, a.sk, a.Sk, a.KH, a.B, T::TK) ||
-      !attn_map<HD>(&tv, a.v, a.sv, a.Sk, a.KH, a.B, T::TK) ||
-      !attn_map<HD>(&to, a.o, so, a.Sq, a.H, a.B, 64))
+  if (!attn_map<HD>(&tq, a.q, 0, a.sq, a.Sq, a.H, a.B, TQ) ||
+      !attn_map<HD>(&tk, a.k, 0, a.sk, a.Sk, a.KH, a.B, T::TK) ||
+      !attn_map<DV>(&tv, a.v, off, a.sv, a.Sk, a.KH, a.B, T::TK) ||
+      !attn_map<DV>(&to, a.o, off, so, a.Sq, a.H, a.B, 64))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16<HD>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16<HD, DV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (a.sched == nullptr || a.grid < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int grid = a.grid;
-  flash_fwd_bf16<HD><<<grid, 384, T::SMEM, st>>>(
+  flash_fwd_bf16<HD, DV><<<grid, 384, T::SMEM, st>>>(
       tq, tk, tv, to, a.sched, a.B, a.Sq, a.Sk, a.H, a.KH, a.causal, a.window,
       LOG2E / sqrtf(static_cast<float>(HD)));
   return static_cast<int>(cudaGetLastError());
@@ -629,12 +645,18 @@ int launch_bf16(const Args& a, cudaStream_t st) {
 template <int HD>
 int launch(const Args& a, int dtype, cudaStream_t st) {
   if (dtype == 0) return launch_f32<HD>(a, st);
-  if (dtype == 1) return launch_bf16<HD>(a, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (HD == 256) {       // two launches, one 128-wide half of v and o each
+    const int err = launch_bf16<256, 128>(a, 0, st);
+    return err != 0 ? err : launch_bf16<256, 128>(a, 128, st);
+  } else {
+    return launch_bf16<HD, HD>(a, 0, st);
+  }
 }
 
 }  // namespace
 
+// hd: 16, 32, 64, 128 or 256 (bf16: two launches, see above).
 // q: (B, Sq, H, hd), k/v: (B, Sk, KH, hd), each with unit stride on hd and
 // the three outer strides given; o: contiguous (B, Sq, H, hd) of q's dtype.
 // window <= 0 means no window. dtype: 0 = float32, 1 = bfloat16 (whose
@@ -657,6 +679,7 @@ extern "C" int repro_flash_attention_fwd(const void* q, long long sq0, long long
     case 32: return launch<32>(a, dtype, st);
     case 64: return launch<64>(a, dtype, st);
     case 128: return launch<128>(a, dtype, st);
+    case 256: return launch<256>(a, dtype, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -7,9 +7,15 @@ model's layout directly, q (B, Sq, H, hd) and k/v (B, Sk, K, hd), and maps
 query head h to KV head h // (H/K) inside the kernel. For a tensor on the
 CPU it computes ``attention_plain``; for a CUDA tensor it launches
 ``csrc/flash_attention.cu`` or raises. It never falls back.
+On meta tensors (``repro_torch.analysis``) it returns its output's shape
+and dtype and records each launch's operations and bytes
+(``launch_costs``). ``cost()``, the function's own operations and bytes,
+is the bound ``chip_smoke.py`` uses; the launches do more at hd = 256.
 
 The kernel is bound by its operations: 4·hd per live (query, key) pair of
-each (batch, head), with S(S+1)/2 live pairs under the causal mask. In bf16
+each (batch, head), with S(S+1)/2 live pairs under the causal mask. At
+hd = 256 in bf16 one call is two launches, each for a 128-wide half of v
+and o, both computing the whole q·k (so 6·hd a pair). In bf16
 it runs on the tensor cores (wgmma fed by TMA) on a persistent grid whose
 blocks take the work lists that ``schedule`` builds here; in f32 on the
 CUDA cores. Its design and what it leaves for later are in the source.
@@ -26,7 +32,7 @@ import torch
 from repro_torch.kernels import build, launch_count
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 NEG_INF = -1e30
 TQ = 128          # query rows of a bf16 work item, as in the source
 ITEM_COST = 1     # an item's fixed cost in key tiles (Q, the first S, the store)
@@ -69,7 +75,13 @@ def _lib():
 
 def key_tile(hd: int) -> int:
     """Keys per tile of the bf16 kernel, as in the source."""
-    return 64 if hd == 128 else 128
+    return 64 if hd >= 128 else 128
+
+
+def launches_per_call(hd: int, dtype) -> int:
+    """Kernel launches of one call: two in bf16 at hd = 256 (one 128-wide
+    half of v and o each, as the source explains), else one."""
+    return 2 if hd == 256 and dtype == torch.bfloat16 else 1
 
 
 def work_items(B: int, H: int, Sq: int, Sk: int, causal: bool,
@@ -171,14 +183,62 @@ def _check_bf16_layout(q, k, v):
                 f"{t.stride()}")
 
 
+def live_pairs(Sq: int, Sk: int, causal: bool = True,
+               window: Optional[int] = None) -> int:
+    """(query, key) pairs the mask keeps, per (batch, head): query i sees
+    keys j <= i (causal) and j > i - window, within [0, Sk)."""
+    i = torch.arange(Sq, dtype=torch.int64)
+    hi = torch.clamp(i, max=Sk - 1) if causal else torch.full_like(i, Sk - 1)
+    lo = torch.clamp(i - window + 1, min=0) if window else torch.zeros_like(i)
+    return int(torch.clamp(hi - lo + 1, min=0).sum())
+
+
+def cost(B: int, Sq: int, Sk: int, H: int, K: int, hd: int,
+         dtype=torch.bfloat16, causal: bool = True,
+         window: Optional[int] = None) -> tuple:
+    """(operations, bytes) of one launch: 4·hd operations per live (query,
+    key) pair of each (batch, head), against reading q, k, v and writing
+    o once."""
+    esz = torch.empty((), dtype=dtype).element_size()
+    ops = 4.0 * B * H * hd * live_pairs(Sq, Sk, causal, window)
+    return ops, (2 * B * Sq * H * hd + 2 * B * Sk * K * hd) * esz
+
+
+def launch_costs(B: int, Sq: int, Sk: int, H: int, K: int, hd: int,
+                 dtype=torch.bfloat16, causal: bool = True,
+                 window: Optional[int] = None) -> list:
+    """[(operations, bytes)] of each launch of one call, as the kernel does
+    the work: ``[cost(...)]``, except at hd = 256 in bf16, where each of
+    the two launches computes the whole q·k (2·hd a live pair) and half of
+    P·v (hd a pair), and reads all of q and k and half of v, and writes
+    half of o."""
+    if launches_per_call(hd, dtype) == 1:
+        return [cost(B, Sq, Sk, H, K, hd, dtype, causal, window)]
+    esz = torch.empty((), dtype=dtype).element_size()
+    ops = 3.0 * B * H * hd * live_pairs(Sq, Sk, causal, window)
+    q_o, k_v = B * Sq * H * hd, B * Sk * K * hd
+    nbytes = (q_o + k_v + k_v // 2 + q_o // 2) * esz
+    return [(ops, nbytes)] * 2
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None):
-    """q: (B, Sq, H, hd); k/v: (B, Sk, K, hd) -> (B, Sq, H, hd) in q.dtype."""
+    """q: (B, Sq, H, hd); k/v: (B, Sk, K, hd) -> (B, Sq, H, hd) in q.dtype.
+    On meta tensors it records ``launch_costs`` with ``analysis.count``
+    and returns the kernel's output, shape and dtype only."""
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal=causal, window=window)
+    if q.device.type == "meta":
+        from repro_torch.analysis import count
+        B, Sq, H, hd = q.shape
+        for ops, nbytes in launch_costs(B, Sq, k.shape[1], H, k.shape[2],
+                                        hd, q.dtype, bool(causal), window):
+            count.kernel("flash_attention", ops, nbytes, q.dtype)
+        return torch.empty((B, Sq, H, hd), dtype=q.dtype, device="meta")
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+        raise ValueError(f"flash_attention runs on cuda, cpu or meta, not "
+                         f"{q.device}")
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
     o = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
@@ -194,7 +254,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
                      o.data_ptr(), B, Sq, Sk, H, K, hd, int(causal),
                      window or 0, _DTYPES[q.dtype],
                      None if lists is None else lists.data_ptr(), grid, stream)
-    launch_count.count(flash_attention, "flash_attention")
+    for _ in range(launches_per_call(hd, q.dtype)):
+        launch_count.count(flash_attention, "flash_attention")
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")

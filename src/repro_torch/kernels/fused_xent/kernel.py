@@ -5,6 +5,9 @@ PyTorch version.
 ``repro/kernels/fused_xent/kernel.py::_xent_kernel``. For a tensor on the
 CPU it computes ``xent_plain``; for a CUDA tensor it launches
 ``csrc/fused_xent.cu`` or raises. It never falls back.
+On meta tensors (``repro_torch.analysis``) it returns its output's shape
+and dtype and records one launch of ``cost()``, the kernel's operations
+and bytes, which ``chip_smoke.py``'s bound uses too.
 
 The kernel is bound by its 2·N·d·Vp operations (compute, not bytes). In
 bf16 it runs on the tensor cores (wgmma fed by TMA) and takes W as a
@@ -132,14 +135,30 @@ def _check_bf16_layout(h, w):
             f"w {tuple(w.shape)} strides {w.stride()}")
 
 
+def cost(N: int, d: int, Vp: int, dtype=torch.bfloat16) -> tuple:
+    """(operations, bytes) of one launch: the 2·N·d·Vp of the products,
+    against reading h, W and the labels once and writing the nll once.
+    The logits are never stored."""
+    esz = torch.empty((), dtype=dtype).element_size()
+    return 2.0 * N * d * Vp, (N * d + d * Vp) * esz + N * 4 + N * 4
+
+
 def fused_xent(h, w, labels, vocab_size: int):
     """h: (N, d); w: (d, Vp), any strides (a transposed embedding is taken
-    as it is); labels: (N,) int32 -> nll (N,) f32."""
+    as it is); labels: (N,) int32 -> nll (N,) f32. On meta tensors it
+    records ``cost`` with ``analysis.count`` and returns the kernel's
+    output, shape and dtype only."""
     _check(h, w, labels, vocab_size)
     if h.device.type == "cpu":
         return xent_plain(h, w, labels, vocab_size)
+    if h.device.type == "meta":
+        from repro_torch.analysis import count
+        count.kernel("fused_xent", *cost(*h.shape, w.shape[1], h.dtype),
+                     h.dtype)
+        return torch.empty((h.shape[0],), dtype=torch.float32, device="meta")
     if h.device.type != "cuda":
-        raise ValueError(f"fused_xent runs on cuda or cpu, not {h.device}")
+        raise ValueError(f"fused_xent runs on cuda, cpu or meta, not "
+                         f"{h.device}")
     N, d = h.shape
     Vp = w.shape[1]
     nsplit = _nsplit(h.device, N, Vp, h.dtype)

@@ -39,13 +39,14 @@ ATTN_SHAPES = [
 # architectures' local layers (hd 32, window 16).
 # flash_attention: (B, S, H, K, hd, causal, window)
 ATTN_EDGES = (
-    [(2, 100, 4, 2, hd, True, None) for hd in (16, 32, 64, 128)]
-    + [(2, 192, 4, 2, hd, False, None) for hd in (16, 32, 64, 128)]
-    + [(1, 192, 8, 2, hd, True, 64) for hd in (16, 32, 64, 128)]
+    [(2, 100, 4, 2, hd, True, None) for hd in (16, 32, 64, 128, 256)]
+    + [(2, 192, 4, 2, hd, False, None) for hd in (16, 32, 64, 128, 256)]
+    + [(1, 192, 8, 2, hd, True, 64) for hd in (16, 32, 64, 128, 256)]
     + [(1, 512, 4, 1, 64, True, 100),     # first visited key tile > 0
        (2, 64, 4, 2, 32, True, 16),       # reduced Mixtral, Gemma3 local
        (8, 1024, 16, 8, 64, True, None),  # paper-transformer
-       (8, 1024, 12, 4, 64, True, None)]  # paper-moe
+       (8, 1024, 12, 4, 64, True, None),  # paper-moe
+       (1, 2048, 16, 8, 256, True, 1024)]  # Gemma3-12B's local layer
 )
 
 # fused_xent: (N, d, Vp, V, tied) -- tied: W is the transposed view of a

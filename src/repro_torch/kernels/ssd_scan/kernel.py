@@ -12,6 +12,9 @@ them to every head first, which is the case G = nh here.
 
 For a tensor on the CPU it computes ``ssd_intra_chunk_plain``; for a CUDA
 tensor it launches ``csrc/ssd_scan.cu`` or raises. It never falls back.
+On meta tensors (``repro_torch.analysis``) it returns its output's shape
+and dtype and records one launch of ``cost()``, the kernel's operations
+and bytes, which ``chip_smoke.py``'s bound uses too.
 
 In bf16 (the training dtype) the kernel runs on the tensor cores
 (``wgmma``, fed by TMA): C·Bᵀ once per (chunk, group, row tile) for every
@@ -128,18 +131,44 @@ def _check_bf16_layout(x, B, C):
                 f"{t.stride()} at offset {t.data_ptr() % 16} bytes from 16")
 
 
+def cost(N: int, cl: int, nh: int, hd: int, G: int, ds: int,
+         dtype=torch.bfloat16) -> tuple:
+    """(operations, bytes) of one launch: the function's own work,
+    whatever computes it, per (chunk, head) the live (i >= j) pairs of
+    2(ds + hd) operations (C·Bᵀ counted for every head) and 2·cl·hd·ds for
+    the state (the bf16 kernel computes C·Bᵀ once per group, about half
+    of this); against reading x, B, C (``dtype``), dt and A (f32) once and
+    writing the three f32 outputs once."""
+    esz = torch.empty((), dtype=dtype).element_size()
+    ops = N * nh * (cl * (cl + 1) / 2 * 2 * (ds + hd) + 2 * cl * hd * ds)
+    nbytes = ((N * cl * nh * hd + 2 * N * cl * G * ds) * esz       # x, B, C
+              + (N * cl * nh + nh) * 4                               # dt, A
+              + (N * cl * nh * hd + N * nh * hd * ds + N * nh) * 4)  # outputs
+    return ops, nbytes
+
+
 def ssd_intra_chunk(x, dt, A, B, C):
     """x: (N, cl, nh, hd); dt: (N, cl, nh) f32; A: (nh,) f32; B/C:
     (N, cl, G, ds). -> (y_diag, states, decays) in f32, as
-    ``ssd_intra_chunk_plain``."""
+    ``ssd_intra_chunk_plain``. On meta tensors it records ``cost`` with
+    ``analysis.count`` and returns the kernel's outputs, shapes and dtypes
+    only."""
     _check(x, dt, A, B, C)
     if x.device.type == "cpu":
         return ssd_intra_chunk_plain(x, dt, A, B, C)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_intra_chunk runs on cuda or cpu, not {x.device}")
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"ssd_intra_chunk runs on cuda, cpu or meta, not "
+                         f"{x.device}")
     N, cl, nh, hd = x.shape
     G, ds = B.shape[2], B.shape[3]
     f32 = dict(dtype=torch.float32, device=x.device)
+    if x.device.type == "meta":
+        from repro_torch.analysis import count
+        count.kernel("ssd_scan", *cost(N, cl, nh, hd, G, ds, x.dtype),
+                     x.dtype)
+        return (torch.empty((N, cl, nh, hd), **f32),
+                torch.empty((N, nh, hd, ds), **f32),
+                torch.empty((N, nh), **f32))
     y = torch.empty((N, cl, nh, hd), **f32)
     states = torch.empty((N, nh, hd, ds), **f32)
     decays = torch.empty((N, nh), **f32)

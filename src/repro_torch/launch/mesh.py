@@ -20,7 +20,10 @@ ranks otherwise (every rank makes every model column's group, in the same
 order). ``model_group`` is the group of the tensor-parallel axis.
 
 :func:`make_data_mesh` is the 1-D ``("data",)`` mesh of the pure
-data-parallel engine. Building a mesh needs a process group; a single
+data-parallel engine. :func:`make_production_mesh` is the dry-run's
+``(data=16, model=16)`` or ``(pod=2, data=16, model=16)`` mesh over a fake
+process group of 256 or 512 ranks in this one process, seen from rank 0
+(``launch.dryrun``). Building a mesh needs a process group; a single
 process that has none gets a one-rank group (``launch.env.ensure_group``).
 Library code raises :class:`MeshError` (a ``ValueError``); the launcher
 turns it into an exit code.
@@ -172,3 +175,42 @@ def local_data_block(mesh, axis=None) -> tuple:
     group = mesh_group(mesh)
     r = dist.get_rank(group)
     return r, r + 1, dist.get_world_size(group)
+
+
+PRODUCTION = {False: ((16, 16), ("data", "model")),
+              True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def make_production_mesh(multi_pod: bool = False):
+    """The production mesh of the dry-run, ``(data=16, model=16)`` (256
+    ranks) or with ``multi_pod`` ``(pod=2, data=16, model=16)`` (512), as
+    rank 0 of a fake process group (``torch.distributed``'s ``fake``
+    backend: every collective returns at once and moves nothing) made in
+    this process. The engine then runs rank 0's program, on meta tensors,
+    as every rank would (SPMD). A mesh of the other size replaces the fake
+    group; a process that holds a real group is refused. The pod geometry
+    is built here, pod-major as ``make_training_mesh`` lays it out; its
+    node-count check stays in force for real runs."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    shape, names = PRODUCTION[bool(multi_pod)]
+    world = 1
+    for n in shape:
+        world *= n
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise MeshError(
+                f"make_production_mesh makes a fake {world}-rank group for "
+                f"a dry-run; this process already holds a real "
+                f"{dist.get_backend()} group of {dist.get_world_size()} "
+                f"ranks")
+        if dist.get_world_size() != world:
+            dist.destroy_process_group()
+    if not dist.is_initialized():
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=world)
+    mesh = _device_mesh("cpu", shape, names)
+    if multi_pod:
+        _check_pod_rows(mesh)
+        mesh._repro_data_group = _flat_data_group(mesh)
+    return mesh

@@ -8,6 +8,7 @@ ssm, hybrid, encdec, vlm):
   prefill_fn(batch)        -> (last logits, caches)          [serve]
   decode_fn(cache, tokens) -> (logits, cache)                [serve]
   init_cache(B, S)         -> zero caches on the model's device
+  input_specs(shape)       -> {name: meta tensor} for train/prefill/decode
 
 ``kernels`` picks the mixer and loss implementations at build time:
 
@@ -34,7 +35,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import KERNEL_CHOICES
 from repro_torch.models import transformer as T
@@ -54,6 +55,23 @@ def frontend_embeds(cfg, B: int, device):
     return torch.zeros(shape, dtype=torch.bfloat16, device=device)
 
 
+def input_specs(cfg, shape: InputShape) -> dict:
+    """The batch of ``shape`` as meta tensors (shapes and dtypes only), as
+    the reference's ``input_specs`` gives ``ShapeDtypeStruct``s: int32
+    ``tokens`` (B, S), (B, 1) at decode; bf16 ``frontend_embeds`` for a
+    VLM (B, image tokens, d) or an enc-dec model (B, encoder_seq, d), not
+    at decode."""
+    B, S = shape.global_batch, shape.seq_len
+    specs = {"tokens": torch.empty(
+        (B, 1 if shape.kind == "decode" else S), dtype=torch.int32,
+        device="meta")}
+    if shape.kind != "decode":
+        fe = frontend_embeds(cfg, B, "meta")
+        if fe is not None:
+            specs["frontend_embeds"] = fe
+    return specs
+
+
 @dataclass
 class Model:
     cfg: ModelConfig
@@ -67,6 +85,9 @@ class Model:
 
     def params(self) -> list:
         return list(self.module.parameters())
+
+    def input_specs(self, shape: InputShape) -> dict:
+        return input_specs(self.cfg, shape)
 
 
 def build_model(cfg: ModelConfig, *, kernels: str = "cuda",

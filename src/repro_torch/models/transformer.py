@@ -244,11 +244,13 @@ def init_params(model: Transformer, seed: int = 0,
     An enc-dec model's ``pos_embed`` is allocated here with ``max(max_seq,
     1)`` rows, as the JAX ``init_params`` sizes it. The random
     draws are not the JAX package's (tests carry JAX weights over with
-    ``repro_torch.convert``)."""
+    ``repro_torch.convert``). On the meta device it only allocates."""
     dev = model.embed.device
     if model.cfg.family == "encdec":
         model.pos_embed = _dense((max(max_seq, 1), model.cfg.d_model),
                                  model.embed.dtype, dev)
+    if dev.type == "meta":        # shapes only (the dry-run): nothing to draw
+        return model
     gen = torch.Generator(device=dev).manual_seed(seed)
     for name, p in model.named_parameters():
         if p.dim() < 2:

@@ -45,7 +45,11 @@ def test_port_imports_no_jax_and_no_repro():
         "        'repro_torch.distributed.async_ps.server',\n"
         "        'repro_torch.distributed.async_ps.worker',\n"
         "        'repro_torch.distributed.async_ps.coordinator',\n"
-        "        'repro_torch.distributed.async_ps.parity'] + [\n"
+        "        'repro_torch.distributed.async_ps.parity',\n"
+        "        'repro_torch.analysis', 'repro_torch.analysis.mode',\n"
+        "        'repro_torch.analysis.count',\n"
+        "        'repro_torch.analysis.roofline',\n"
+        "        'repro_torch.launch.dryrun'] + [\n"
         "    'repro_torch.configs.' + a for a in ARCH_IDS]\n"
         "print('MISSING', [m for m in need if m not in sys.modules])\n"
         "print('BAD', bad, 'N', n)\n")

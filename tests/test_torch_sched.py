@@ -23,6 +23,8 @@ Mirrors the single-device half of ``tests/test_sched.py``:
   * the data-parallel legs of ``repro.sched.parity`` over two spawned gloo
     ranks (``repro_torch.sched.parity --procs 2``).
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -343,22 +345,72 @@ def test_sched_parity_dp_legs_over_two_ranks(capsys):
 # ---------------------------------------------------------------------------
 # loss-prop: no starvation (property), warm-up, residency, determinism
 # ---------------------------------------------------------------------------
-@settings(max_examples=10, deadline=None)
-@given(st.floats(min_value=0.05, max_value=0.9),
+STARVE_EPS_MIN, STARVE_NB = 0.05, 8
+STARVE_FALSE_FAIL = 1e-9          # chance that a correct schedule fails
+
+
+def _starvation_bound(eps, n_b, false_fail):
+    """The least T with (n_b − 1)·(1 − ε/n_b)^T ≤ ``false_fail``: the draws
+    after which a cold batch's miss, P(miss) = (1 − ε/n_b)^T, is that
+    unlikely for any of the n_b − 1 cold batches (a union bound)."""
+    return math.ceil(math.log(false_fail / (n_b - 1))
+                     / math.log(1.0 - eps / n_b))
+
+
+def _cold_state(n_b, hot_loss):
+    table = torch.full((n_b,), 1e-6)
+    table[0] = hot_loss
+    return {"table": table, "visits": torch.ones(n_b, dtype=torch.int32)}
+
+
+def _visited(lp, state, seed, n_b, draws):
+    return {int(lp.select(state, n_b + j,
+                          TP.fold_in(seed, n_b + j, device="cpu"))[0])
+            for j in range(draws)}
+
+
+@settings(max_examples=10, deadline=None, database=None, derandomize=True)
+@given(st.floats(min_value=STARVE_EPS_MIN, max_value=0.9),
        st.integers(min_value=0, max_value=10_000),
        st.floats(min_value=1.0, max_value=1e4))
 def test_loss_prop_no_starvation(eps, seed, hot_loss):
     """For any ε>0: even with one batch dominating the table, every batch
-    is selected within a bounded number of draws (P(miss) ≤ (1-ε/n_b)^T)."""
-    n_b, bound = 8, 600               # (1 - 0.05/8)^600 < 2.4e-2 worst ε
+    is selected within a bounded number of draws (P(miss) ≤ (1-ε/n_b)^T).
+    T is taken at the worst ε so that a false failure has chance ≤ 1e-9;
+    ``test_loss_prop_miss_rate_matches_mixing`` checks the miss rate at a
+    T where misses are common."""
+    n_b = STARVE_NB
+    bound = _starvation_bound(STARVE_EPS_MIN, n_b, STARVE_FALSE_FAIL)
     lp = TP.LossPropSchedule(eps=eps)
-    table = torch.full((n_b,), 1e-6)
-    table[0] = hot_loss
-    state = {"table": table, "visits": torch.ones(n_b, dtype=torch.int32)}
-    visited = {int(lp.select(state, n_b + j,
-                             TP.fold_in(seed, n_b + j, device="cpu"))[0])
-               for j in range(bound)}
+    visited = _visited(lp, _cold_state(n_b, hot_loss), seed, n_b, bound)
     assert visited == set(range(n_b)), f"starved batches (eps={eps})"
+
+
+def _binomial_band(n, p, tail):
+    """[lo, hi] with P(X < lo) ≤ tail and P(X > hi) ≤ tail, X ~ B(n, p)."""
+    pmf = [math.comb(n, k) * p ** k * (1.0 - p) ** (n - k)
+           for k in range(n + 1)]
+    cdf = np.cumsum(pmf)
+    lo = int(np.searchsorted(cdf, tail, side="right"))
+    hi = int(np.searchsorted(cdf, 1.0 - tail, side="left"))
+    return lo, hi
+
+
+def test_loss_prop_miss_rate_matches_mixing():
+    """The ε-mixing itself: at ε = 0.05 and T = 600 draws, a cold batch
+    (table entry at the minimum, score 0) is drawn with probability ε/n_b
+    each draw, so it is missed in all T with probability (1 − ε/n_b)^T
+    (≈ 0.0233). Over 100 fixed seeds × 7 cold batches the number of misses
+    must lie in the binomial band whose tails hold 1e-6 each."""
+    n_b, eps, draws, seeds = STARVE_NB, STARVE_EPS_MIN, 600, range(100)
+    lp = TP.LossPropSchedule(eps=eps)
+    state = _cold_state(n_b, 1.0)
+    misses = sum(n_b - len(_visited(lp, state, seed, n_b, draws))
+                 for seed in seeds)
+    trials = len(seeds) * (n_b - 1)
+    p_miss = (1.0 - eps / n_b) ** draws
+    lo, hi = _binomial_band(trials, p_miss, 1e-6)
+    assert lo <= misses <= hi, (misses, trials, p_miss, (lo, hi))
 
 
 def test_rank_prefers_high_loss_batches():

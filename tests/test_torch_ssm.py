@@ -226,8 +226,12 @@ def test_ssd_wrapper_checks_its_inputs():
         ssd_intra_chunk(x.double(), dt, A, B.double(), C.double())
     with pytest.raises(TypeError):
         ssd_intra_chunk(x, dt.to(torch.bfloat16), A, B, C)
-    with pytest.raises(ValueError):
-        ssd_intra_chunk(*(t.to("meta") for t in (x, dt, A, B, C)))
+    # meta tensors (the analysis tier): the outputs' shapes, no launch
+    outs = ssd_intra_chunk(*(t.to("meta") for t in (x, dt, A, B, C)))
+    N, cl, nh, hd = x.shape
+    assert [tuple(o.shape) for o in outs] == [
+        (N, cl, nh, hd), (N, nh, hd, B.shape[3]), (N, nh)]
+    assert all(o.device.type == "meta" for o in outs)
     assert ssd_intra_chunk.launches == 0
 
 
