@@ -60,8 +60,9 @@ graph and its IF nodes), each bit for bit with the single-device run of
 its engine (losses, ψ̄, limits, decisions, trips) with the same launches,
 its ms/step beside the single-device figure; ``dp2`` trains it on two
 ranks sharing the card over gloo, 4 rows a rank, with the replicas
-checksummed alike after every step, every reduction's gathered rows the
-ranks' own and each ψ the f32 mean of the shards' bit for bit, and each
+checksummed alike after every step, every reduction's received segments
+the ranks' own, each mean the f32 rank-order mean of them and each ψ the
+f32 mean of the shards' bit for bit, and each
 rank's ψ within the bf16 ``fused_xent`` tolerance of the single-device
 run; ``dp_parity`` runs
 ``python -m repro_torch.distributed.parity`` with two gloo ranks and one
@@ -114,8 +115,13 @@ phases. ``analysis`` holds the analysis tier's meta-device count of one
 ``paper-transformer`` base evaluation against the card's own run of it
 (FLOPs, launches, device time against the roofline's compute time, peak
 memory); ``--analysis-only`` runs the device line, the build, ``train``
-and ``analysis``. Each phase prints one JSON line; the last two lines are the
-kernels summary and ``{"ok": true, "device": {...}}``.
+and ``analysis``. The phases that run only child processes (``resume``,
+``dp``, ``dp2``, ``hybrid``, the parity harnesses but ``async_parity``,
+and ``async_resume``) run four at a time, after ``sched``, ``async_ps``
+and ``async_ps2`` and before ``async_faults`` (``child_phases``); every
+other phase runs alone on the card. Each phase prints one JSON line, with ``at_s``, the
+seconds since its process started; the last two lines are the kernels
+summary and ``{"ok": true, "device": {...}}``.
 
 Nothing is caught: any failure exits nonzero before the last line. Without
 a CUDA device, or outside a checkout of the repository, it exits nonzero
@@ -166,8 +172,19 @@ def train_args(model: str, steps: int = 12) -> list:
             "--stop", "3", "--device", "cuda"]
 
 
+T0 = time.perf_counter()                   # this process's start, for ``at_s``
+_EMIT = threading.Lock()
+
+
 def emit(phase: str, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line for a phase, with ``at_s``, the seconds since this
+    process started; one write under a lock, as phases run in threads
+    too."""
+    line = json.dumps({"phase": phase, **fields,
+                       "at_s": time.perf_counter() - T0})
+    with _EMIT:
+        sys.stdout.write(line + "\n")
+        sys.stdout.flush()
 
 
 SLEEP_HZ = 2.0e9                           # cycles per second of torch.cuda._sleep, at most
@@ -1494,8 +1511,9 @@ def launch_child(out: str, spec: dict, argv: list):
     more: ``counted`` counts the kernels' launches on the device
     (``device_counted``, a fused run); ``replicas`` checksums every rank's
     replica after each step (``ReplicaCheck``, kept out of the walls and
-    the peak); ``probe`` records every reduction's loss slots
-    (``probe_gathers``, a per-step run); ``final_sum`` the device checksum
+    the peak); ``probe`` records the head of every reduction's segments
+    and means (``probe_reductions``, a per-step run); ``final_sum`` the
+    device checksum
     of the final params and rule state (``engine_checksum``)."""
     torch.backends.cuda.matmul.allow_tf32 = False   # as the parent runs
     torch.backends.cudnn.allow_tf32 = False
@@ -1509,7 +1527,7 @@ def launch_child(out: str, spec: dict, argv: list):
     args = launcher.parse_args(argv)
     check = ReplicaCheck(spec.get("tp", False)) if spec.get("replicas") \
         else None
-    gathers = probe_gathers() if spec.get("probe") else None
+    reductions = probe_reductions() if spec.get("probe") else None
     device = None
     if spec.get("counted"):
         res, device = device_counted(
@@ -1548,7 +1566,7 @@ def launch_child(out: str, spec: dict, argv: list):
                    "reduce_bytes": res["reduce_bytes"],
                    "params": res["params"],
                    "replicas": None if check is None else check.rows,
-                   "gathers": gathers, "tp": tp,
+                   "reductions": reductions, "tp": tp,
                    # an async-PS run's push records and events
                    "records": [{k: r[k] for k in ("worker", "tau", "batch",
                                                   "version")}
@@ -1744,24 +1762,37 @@ class ReplicaCheck:
         self.rows.append(row)
 
 
-def probe_gathers() -> list:
-    """Record every gather of a reduction's bucket (``AxisReduce.gather``
-    into a (world, n) buffer, n > 2), in order: this rank's ψ and aux (the
-    bucket's first two slots, ``wrap_loss_and_grad``'s layout) and the
-    gathered rows' ({"local": [ψ, aux], "gathered": [[ψ, aux] of rank 0,
-    …]}). The first is ``init_fn``'s priming gather. Each record reads the
-    host, so a captured gather (the fused engine) cannot be probed."""
-    from repro_torch.core.reduce import AxisReduce
-    rows, gather = [], AxisReduce.gather
+PROBE_HEAD = 4                   # elements of each segment a probe records
 
-    def probed(self, x, out):
-        gather(self, x, out)
-        if out.dim() == 2 and out.shape[1] > 2:
-            rows.append({"local": x[:2].tolist(),
-                         "gathered": out[:, :2].tolist()})
+
+def probe_reductions() -> list:
+    """Record every reduction of the data mean (``AxisReduce``: the
+    exchange of its reduce-scatter, then the gather of the means), in
+    order: this rank's first PROBE_HEAD elements of each segment it sends
+    (``sent``, rank order; segment 0 starts with ψ and aux, the bucket's
+    first slots in ``wrap_loss_and_grad``'s layout), of each segment it
+    receives (``received``, rank order) and of the means it takes of them
+    (``means``, the gather's input). The first record is ``init_fn``'s
+    priming reduction. Each record reads the host, so a captured reduction
+    (the fused engine) cannot be probed."""
+    from repro_torch.core.reduce import AxisReduce
+    rows, exchange, gather = [], AxisReduce.exchange, AxisReduce.gather
+
+    def exchanged(self, bucket, out, sizes):
+        exchange(self, bucket, out, sizes)
+        starts = np.cumsum([0] + list(sizes[:-1])).tolist()
+        rows.append({
+            "sent": [bucket[a:a + min(PROBE_HEAD, n)].tolist()
+                     for a, n in zip(starts, sizes)],
+            "received": out[:, :PROBE_HEAD].tolist()})
         return out
 
-    AxisReduce.gather = probed
+    def gathered(self, x, out, group=None):
+        if rows and "means" not in rows[-1] and group is None:
+            rows[-1]["means"] = x[:PROBE_HEAD].tolist()
+        return gather(self, x, out, group)
+
+    AxisReduce.exchange, AxisReduce.gather = exchanged, gathered
     return rows
 
 
@@ -1776,42 +1807,52 @@ def f32_shard_mean(xs: list) -> float:
 
 def shard_reduction(ranks: list) -> dict:
     """The two-rank run's reductions against their shards (``probe``): at
-    every evaluation every rank's gathered rows must be the ranks' own
-    bucket slots in rank order (so no shard is dropped or handed twice),
-    and each step's logged ψ the rank-order f32 mean of the shards' ψ bit
+    every evaluation each rank's received segments must be the ranks' own
+    segments for it, in rank order (so no shard is dropped or handed
+    twice), each of its means the rank-order f32 mean of what it received
+    bit for bit, and each step's logged ψ, on every rank, rank 0's mean of
+    the ranks' ψ slots and the rank-order f32 mean of the shards' ψ bit
     for bit. The shards' ψ must differ, or the check could not tell."""
-    evals = [g["gathers"][1:] for g in ranks]        # past the priming
+    evals = [g["reductions"][1:] for g in ranks]     # past the priming
     n, sub = len(ranks), ranks[0]["sub_iters"]
     want = ranks[0]["steps"] + sum(sub)
     out = dict(evaluations=[len(e) for e in evals], expected=want)
     if any(len(e) != want for e in evals):
         return dict(out, ok=False)
     first = np.cumsum([0] + [1 + s for s in sub[:-1]]).tolist()
-    rows_ok = all(evals[r][i]["gathered"]
-                  == [evals[q][i]["local"] for q in range(n)]
-                  for r in range(n) for i in range(want))
-    shard_psi = [[evals[r][i]["local"][0] for i in first] for r in range(n)]
-    mean_ok = all(g["losses"][j] == f32_shard_mean(
-        [row[0] for row in evals[r][i]["gathered"]])
-        for r, g in enumerate(ranks) for j, i in enumerate(first))
+    rows_ok = all(evals[r][i]["received"][q] == evals[q][i]["sent"][r]
+                  for r in range(n) for q in range(n) for i in range(want))
+    means_ok = all(
+        e["means"] == [f32_shard_mean(col) for col in zip(*e["received"])]
+        for ev in evals for e in ev)
+    shard_psi = [[evals[r][i]["sent"][0][0] for i in first]
+                 for r in range(n)]
+    psi_ok = all(
+        g["losses"][j] == evals[0][i]["means"][0] == f32_shard_mean(
+            [evals[q][i]["sent"][0][0] for q in range(n)])
+        for g in ranks for j, i in enumerate(first))
     distinct = all(len(set(col)) == n for col in zip(*shard_psi))
-    return dict(out, rows_in_rank_order=rows_ok, psi_is_shard_mean=mean_ok,
-                shards_distinct=distinct, shard_psi=shard_psi,
-                ok=rows_ok and mean_ok and distinct)
+    return dict(out, segments_in_rank_order=rows_ok,
+                means_are_rank_order_means=means_ok,
+                psi_is_shard_mean=psi_ok, shards_distinct=distinct,
+                shard_psi=shard_psi,
+                ok=rows_ok and means_ok and psi_ok and distinct)
 
 
 def phase_dp(per_step: dict, chunked: dict):
     """One NCCL rank (``--engine data-parallel``, no process arguments: a
     one-rank group) on ``paper-transformer`` base: per-step for 12 steps
-    and fused at K = 4, each a child process. The one-rank gather and mean
-    must leave every value as it was, so each run must equal the
+    and fused at K = 4, each a child process (fused: the reduce-scatter's
+    exchange and gather captured in the CUDA graph). The one-rank
+    reduction must leave every value as it was, so each run must equal the
     single-device run of the same engine (``train``, ``chunked``) bit for
     bit: every loss, ψ̄, limit, accelerate decision and sub_iters; and it
     must launch the same kernels as often (host counts per-step, device
     counts fused: ``fused_xent`` and ``flash_attention`` per evaluation
     times steps plus trips). ms/step is printed beside the single-device
     figures, with the bytes the reduction adds (the f32 bucket and the
-    gathered (1, n) buffer)."""
+    receive buffer, n each at one rank); it shares the card with the
+    other child phases (``child_phases``), so it is no speed figure."""
     import tempfile
     t0 = time.perf_counter()
     per_eval = launches_per_eval(zoo_base("transformer"))
@@ -1841,7 +1882,7 @@ def phase_dp(per_step: dict, chunked: dict):
                    ms_per_step=ms_after_walls(got["wall"], first),
                    single_device_ms_per_step=ms_after(ref, first),
                    bucket_bytes=got["reduce_bytes"]["bucket"],
-                   gathered_bytes=got["reduce_bytes"]["gathered"],
+                   received_bytes=got["reduce_bytes"]["received"],
                    added_bytes=sum(got["reduce_bytes"].values()),
                    peak_mem_gib=got["peak_bytes"] / 2**30,
                    capture_seconds=got["capture_seconds"])
@@ -1857,23 +1898,37 @@ def phase_dp(per_step: dict, chunked: dict):
     emit("dp_seconds", seconds=time.perf_counter() - t0)
 
 
+_PORTS: set = set()                        # handed out by free_port
+_PORTS_LOCK = threading.Lock()
+
+
 def free_port() -> int:
+    """A free local port that no earlier call returned (``dp2`` and
+    ``hybrid`` pick theirs in threads started together)."""
     import socket
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    while True:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        with _PORTS_LOCK:
+            if port not in _PORTS:
+                _PORTS.add(port)
+                return port
 
 
 def phase_dp2(per_step: dict):
     """Two ranks sharing the card over gloo (``--dist-backend gloo``: NCCL
     refuses two ranks on one device), per-step, ``paper-transformer`` base
     at global batch 8 (4 a rank) for DP2_STEPS steps: a real two-shard
-    reduction, each 1.28 GB f32 bucket staged through the host. After every
-    step the ranks' params, optimizer state, queue and counters must
-    checksum alike (gathered across the ranks). Every reduction is held
-    against its shards (``shard_reduction``): the gathered rows are the
-    ranks' own in rank order, and each step's ψ is the f32 mean of the two
-    shards' ψ bit for bit. Each rank's ψ must also stay within the bf16
+    reduction, a reduce-scatter whose segments (0.64 GB f32 each) and
+    gathered means are staged through the host. After every step the
+    ranks' params, optimizer state, queue and counters must checksum alike
+    (gathered across the ranks). Every reduction is held against its
+    shards (``shard_reduction``): each rank's received segments are the
+    ranks' own for it in rank order, its means their f32 rank-order mean,
+    and each step's ψ the f32 mean of the two shards' ψ, bit for bit. Each
+    rank's reduction buffers and peak are printed. Each rank's ψ must also
+    stay within the bf16
     ``fused_xent`` tolerance (``numerics``) of the single-device run's on
     the same global batches (printed beside the gap a one-shard ψ shows),
     and its accelerate decisions equal wherever that run's ψ is clear of
@@ -2502,7 +2557,7 @@ ONESHOT_RUN = ["--engine", "oneshot", "--batch", "16", "--prompt-len", "512",
 SERVE_TOL = {"prefill": 3e-2, "decode": 5e-2}
 FULL_FORWARD_STEPS = 8
 DEV = "cuda"                               # the serving phases' device
-PUBLISH_STEPS, PUBLISH_EVERY = 8, 4
+PUBLISH_STEPS, PUBLISH_EVERY = 4, 4
 
 
 def margin_tol() -> tuple:
@@ -2970,7 +3025,7 @@ def phase_serve_arch():
 
 def phase_train_and_serve():
     """A trainer child (``paper-transformer`` base, the launcher through
-    ``--launch``) publishing every 4 of 8 steps while this process serves
+    ``--launch``) publishing at step 4 of 4 while this process serves
     with the watcher polled before every decode step: at least 2
     generations served, no request dropped, a request that spans a swap,
     and the served params equal to the file LATEST points to, by checksum.
@@ -3243,6 +3298,50 @@ def async_phases(per_step: dict) -> dict:
     return launches
 
 
+CHILD_JOBS = 4                             # child phases at a time (card memory)
+
+
+def child_phases(sched_ref: dict, async_ref: dict, per_step: dict,
+                 chunked: dict) -> dict:
+    """The phases whose runs are child processes of the launcher or of a
+    harness (``resume``, ``async_resume``, ``dp``, ``dp2``, ``hybrid`` and
+    the parity legs), each in a thread of its own, CHILD_JOBS at a time,
+    longest first: their checks are bit for bit or within a tolerance,
+    and none is timed against a bound. ``async_parity`` is not among them:
+    its two-worker leg's convergence depends on how the threads of one
+    process interleave, and on a shared host it failed its ψ̄ tolerance
+    (1.651 against 1.371, tolerance 0.25). All six at once ask more than
+    the card's 80 GB (about 15 GB for ``dp2``'s two ranks, 10 for each
+    other phase, 11 this process holds), so CHILD_JOBS bounds them. Their
+    walls and s/step include the others' share of the card and the host.
+    Every phase runs to its end; then any failure raises.
+    The line ``child_phases`` gives their wall and what this process
+    still holds on the card. -> ``hybrid``'s rank-0 device launches."""
+    from concurrent.futures import ThreadPoolExecutor
+    torch.cuda.empty_cache()                # the children's room
+    t0 = time.perf_counter()
+    held = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    jobs = {"resume": partial(phase_resume, sched_ref),
+            "async_resume": partial(phase_async_resume, async_ref),
+            "parity": partial(run_legs, dp_parity_legs()
+                              + hybrid_parity_legs()
+                              + multihost_parity_legs() + zoo_parity_legs()),
+            "dp": partial(phase_dp, per_step, chunked),
+            "dp2": partial(phase_dp2, per_step),
+            "hybrid": partial(phase_hybrid, per_step)}
+    with ThreadPoolExecutor(CHILD_JOBS) as pool:
+        futures = {name: pool.submit(job) for name, job in jobs.items()}
+    failures = [f"{name}: {f.exception()}" for name, f in futures.items()
+                if f.exception() is not None]
+    emit("child_phases", jobs=list(jobs), at_a_time=CHILD_JOBS,
+         failed=[f.split(":")[0] for f in failures],
+         main_allocated_gib=held[0] / 2**30, main_reserved_gib=held[1] / 2**30,
+         seconds=time.perf_counter() - t0)
+    if failures:
+        raise SystemExit("\n".join(failures))
+    return futures["hybrid"].result()
+
+
 def serve_phases():
     phase_serve()
     phase_serve_oneshot()
@@ -3296,14 +3395,15 @@ def main():
     phase_micro_batches()
     phase_profile_dir()
     phase_eval_cnn()
-    phase_resume(phase_sched(train["transformer"], chunked["transformer"]))
-    phase_dp(train["transformer"], chunked["transformer"])
-    phase_dp2(train["transformer"])
-    hybrid = phase_hybrid(train["transformer"])
-    # the parity harnesses are independent toy runs: started together
-    run_legs(dp_parity_legs() + hybrid_parity_legs()
-             + multihost_parity_legs() + zoo_parity_legs())
-    async_launches = async_phases(train["transformer"])
+    sched_ref = phase_sched(train["transformer"], chunked["transformer"])
+    async_ref = phase_async_ps(train["transformer"])
+    phase_async_ps2(train["transformer"])
+    hybrid = child_phases(sched_ref, async_ref, train["transformer"],
+                          chunked["transformer"])
+    async_launches = async_ref["device_launches"]
+    del sched_ref, async_ref
+    phase_async_faults()
+    run_legs(async_parity_legs())
     phase_analysis(train["transformer"])
     serve_phases()
     kernels = []

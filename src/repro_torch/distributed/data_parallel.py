@@ -11,11 +11,11 @@ device. The engine picks its strategy from the mesh at ONE point,
     ``[r·b/n, (r+1)·b/n)``, the flat pod-major shard order ``P(("pod",
     "data"))`` gives in the reference), and every ``loss_and_grad``
     evaluation is reduced by ``AxisReduce(axis, deterministic=True)`` over
-    the mesh's data group (``core.reduce``: one flat f32 bucket gathered in
-    rank order and averaged locally). So the accelerate predicate and every
-    Alg. 2 trip see the same ψ on every rank, every rank computes the same
-    new params, and a ``(pod=2, data=2)`` mesh gives a ``(data=4)`` mesh's
-    bits.
+    the mesh's data group (``core.reduce``: one flat f32 bucket, reduced in
+    rank order by a reduce-scatter, the means gathered back). So the
+    accelerate predicate and every Alg. 2 trip see the same ψ on every
+    rank, every rank computes the same new params, and a ``(pod=2,
+    data=2)`` mesh gives a ``(data=4)`` mesh's bits.
   * **tensor parallel** (a ``model`` axis of size M > 1; the reference's
     GSPMD strategy). The same ``make_step_core`` body runs on parameters
     placed by ``launch.shardings.hybrid_params_placement``: each rank
@@ -24,9 +24,10 @@ device. The engine picks its strategy from the mesh at ONE point,
     shards it needs (FSDP slices over ``data``; the parameters the model
     does not split over ``model``), cuts the rank's rows of the global
     batch, runs the loss under ``sharding.tensor_parallel`` (attention by
-    heads, the MLP by its ``d_ff``; ``TensorParallel``), takes the data
-    mean of the gradients with the data strategy's ``AxisReduce`` and keeps
-    the rank's slices. Alg. 2's n_w counts the whole tensors.
+    heads, the MLP by its ``d_ff``; ``TensorParallel``) and takes the data
+    mean of the gradients with the data strategy's ``AxisReduce``, as a
+    reduce-scatter that hands each rank only its slices
+    (``Placement.parts``). Alg. 2's n_w counts the whole tensors.
 
 The model-axis collectives are the port's own: list-form ``all_gather`` in
 rank order (``core.reduce.gather_list``), partial sums added in f32 in rank
@@ -211,7 +212,7 @@ class TensorParallelReduce(ReduceCtx):
     """The tensor-parallel strategy's evaluation (module doc): gather the
     placed parameters (``launch.shardings.Placement``), cut the rank's
     rows of the global batch, run the loss under the model split, take the
-    data mean with ``data`` (an ``AxisReduce``), keep the rank's slices.
+    data mean with ``data`` (an ``AxisReduce``) into the rank's slices.
     ``bound`` holds the placement ``MeshStrategy.bind`` found."""
 
     axis: Any = "data"
@@ -231,9 +232,17 @@ class TensorParallelReduce(ReduceCtx):
     def param_count(self, params) -> float:
         return self.placement.global_numel
 
+    def parts(self):
+        """What this rank keeps of each gradient's data mean: its slices
+        (``Placement.parts``, made once)."""
+        parts = self.bound.get("parts")
+        if parts is None:
+            parts = self.bound["parts"] = self.placement.parts()
+        return parts
+
     def prime(self, tensors, device) -> None:
         self.placement.gather_()
-        self.data.prime(self.placement.compute, device)
+        self.data.prime(self.placement.compute, device, self.parts())
         self.tp.sum(torch.zeros(1, device=device))
 
     @property
@@ -245,12 +254,11 @@ class TensorParallelReduce(ReduceCtx):
             with tensor_parallel(self.tp):
                 return loss_and_grad(self.placement.compute, self.rows(batch))
 
-        mean = self.data.wrap_loss_and_grad(local)
+        mean = self.data.wrap_loss_and_grad(local, parts=self.parts)
 
         def lg(params, batch):
             self.placement.gather_()
-            (loss, aux), grads = mean(params, batch)
-            return (loss, aux), self.placement.local_grads(grads)
+            return mean(params, batch)
 
         return lg
 

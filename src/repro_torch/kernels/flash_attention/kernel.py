@@ -40,16 +40,18 @@ _SCHED: dict = {}  # (device, schedule key) -> the work lists on the device
 
 
 def attention_plain(q, k, v, *, causal: bool = True,
-                    window: Optional[int] = None):
+                    window: Optional[int] = None, q_offset: int = 0):
     """q: (B, Sq, H, hd); k/v: (B, Sk, K, hd) -> (B, Sq, H, hd) in q.dtype.
     f32 scores and softmax, masked scores at the finite -1e30
-    (``attention_ref``'s math, on the GQA layout)."""
+    (``attention_ref``'s math, on the GQA layout). ``q_offset`` is the
+    position of q's first row counted from k's first row, so a chunk of
+    rows against a range of keys is masked as in the whole sequence."""
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
     rep = H // K
     qf = q.to(torch.float32).reshape(B, Sq, K, rep, hd)
     s = torch.einsum("bqkrd,bskd->bkrqs", qf, k.to(torch.float32)) / (hd ** 0.5)
-    qpos = torch.arange(Sq, device=q.device)[:, None]
+    qpos = q_offset + torch.arange(Sq, device=q.device)[:, None]
     kpos = torch.arange(Sk, device=q.device)[None, :]
     mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
     if causal:

@@ -20,7 +20,8 @@ predicate has no value to branch on.
     buckets that the engine holds; temp: the peak of what the step
     allocates; out: what it leaves allocated), whether their sum fits
     the card's 80 GB (``fits=`` on the PASS line: a PASS says the step
-    ran, not that a card can hold it), per-device GFLOP, GB and
+    ran, not that a card can hold it; the buffers split into gathered
+    parameters and the reduction's), per-device GFLOP, GB and
     collective GB, the roofline; a JSON record in ``experiments/dryrun/``;
   * ``--mode analysis``: the reference's two-point extrapolation over the
     layer blocks (k = 1, 2), which is exact because every block dispatches
@@ -89,11 +90,18 @@ def _nbytes(tree) -> int:
 class Step:
     """One rank's train step, ready to run: ``run()`` does one step;
     ``arg_bytes`` are the rank's local shards of params and state and the
-    batch it is handed, ``buffer_bytes`` what the engine holds beside
-    them (the compute tensors it gathers into, the reduction's buffers)."""
+    batch it is handed; the engine holds beside them ``gathered_bytes``
+    (the compute tensors it gathers into, past the local shards) and
+    ``reduce_bytes`` (the data mean's bucket and receive buffer)."""
     run: callable
     arg_bytes: int
-    buffer_bytes: int
+    gathered_bytes: int
+    reduce_bytes: int
+
+    @property
+    def buffer_bytes(self) -> int:
+        """What the engine holds beside the arguments."""
+        return self.gathered_bytes + self.reduce_bytes
 
 
 def build_step(model, mesh, shape, *, inconsistent=True, fsdp=True,
@@ -136,7 +144,7 @@ def build_step(model, mesh, shape, *, inconsistent=True, fsdp=True,
         return step_fn(state, local, batch)
 
     return Step(run, _nbytes(local) + _nbytes(state) + _nbytes(batch),
-                gathered + reduce_bytes)
+                gathered, reduce_bytes)
 
 
 def count_step(step: Step):
@@ -214,7 +222,9 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod=False, fsdp=True,
               f"fits={str(fits).lower()} ({rl.memory_per_device_gb:.1f} GB "
               f"{'<=' if fits else '>'} {hbm:.0f} GB)")
         print(f"  mem/device: args={c.arg_bytes/1e9:.2f}GB "
-              f"buffers={c.buffer_bytes/1e9:.2f}GB "
+              f"buffers={c.buffer_bytes/1e9:.2f}GB (gathered params "
+              f"{step.gathered_bytes/1e9:.2f}, reduction "
+              f"{step.reduce_bytes/1e9:.2f}) "
               f"temp={c.temp_peak/1e9:.2f}GB out={c.out_bytes/1e9:.2f}GB")
         print(f"  per-device: {rl.hlo_gflops:.1f} GFLOP, {rl.hlo_gbytes:.1f} GB "
               f"HBM, {rl.collective_gbytes:.3f} GB collective; "
@@ -227,6 +237,8 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod=False, fsdp=True,
             fsdp=fsdp, inconsistent=inconsistent, isgd_stop=isgd_stop,
             micro=micro, cache_shard=cache_shard, fits=fits, hbm_gb=hbm,
             arg_gb=c.arg_bytes / 1e9, buffer_gb=c.buffer_bytes / 1e9,
+            gathered_gb=step.gathered_bytes / 1e9,
+            reduce_gb=step.reduce_bytes / 1e9,
             temp_gb=c.temp_peak / 1e9, out_gb=c.out_bytes / 1e9)
     return rl
 

@@ -15,8 +15,9 @@ rank holds, for every parameter, the tensor its loss reads (the
 
   * **data** in a spec (FSDP): the rank's slice of that dim; the
     evaluation gathers the slices in rank order first, an exact
-    concatenation (``Placement.gather_``), and keeps its slice of the
-    data-mean gradient (``Placement.local_grads``);
+    concatenation (``Placement.gather_``), and the data mean's
+    reduce-scatter hands it only its slice of the gradient
+    (``Placement.parts``);
   * **model** in a spec: where the model splits that layer itself (a dense
     attention layer with H and K divisible by M, by heads: ``wq``, ``wk``,
     ``wv`` by columns and ``wo`` by rows; a SwiGLU or GELU MLP: ``wg``,
@@ -203,10 +204,26 @@ class Placement:
         elif torch.is_tensor(tree) and tree is not fulls:
             tree.copy_(fulls)
 
-    def local_grads(self, grads) -> list:
-        """Gradients of the compute tensors -> this rank's slices (views)."""
-        return [g[self._slices(lf)] if lf.gathers else g
-                for g, lf in zip(grads, self.leaves)]
+    def parts(self):
+        """What this rank keeps of each compute tensor's gradient, its
+        local slice, as the data mean's reduce-scatter takes it
+        (``core.reduce.Parts``): a leaf gathered over ``data`` is kept by
+        the data rank of its slice (on a pod mesh by one rank a pod), a
+        leaf gathered over ``model`` only by every rank of the data group
+        alike, any other leaf whole."""
+        from repro_torch.core.reduce import Parts
+        entries = []
+        for lf in self.leaves:
+            if not lf.gathers:
+                entries.append(None)
+                continue
+            box = tuple((s.start or 0, n if s.stop is None else s.stop)
+                        for s, n in zip(self._slices(lf), lf.compute.shape))
+            ddim = next((d for d, a in lf.gathers if a == "data"), None)
+            entries.append((ddim, box))
+        pods = self.sizes.get("pod", 1)
+        return Parts(tuple(entries), self.sizes.get("data", 1),
+                     self.mesh.get_group("pod") if pods > 1 else None)
 
     @torch.no_grad()
     def full(self, tensors=None) -> list:

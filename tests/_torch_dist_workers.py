@@ -55,6 +55,189 @@ def reduce_rank(rank, world, seed):
     return out
 
 
+def _scatter_shards(world: int, seed: int) -> dict:
+    """Every rank's leaves for the reduce-scatter's layouts: whole leaves
+    of 5·3 + 7 + 1 = 23 elements (23 divides none of 2, 3, 4), and leaves
+    sliced over ``data`` (``data`` ranks slices each); "y" and "v" are
+    sent as bf16."""
+    rng = np.random.RandomState(seed)
+    return {"x": rng.randn(world, 5, 3).astype(np.float32),
+            "y": rng.randn(world, 7).astype(np.float32),
+            "z": rng.randn(world, 1).astype(np.float32),
+            "u": rng.randn(world, 4 * world, 5).astype(np.float32),
+            "v": rng.randn(world, 4, 3 * world).astype(np.float32),
+            "w": rng.randn(world, 6, 4).astype(np.float32)}
+
+
+def scatter_parts(rank: int, world: int, data: int, pod_group=None):
+    """The ``Parts`` of the sliced layout on this rank, data rank c = rank
+    mod ``data``: "u" (4·world, 5) by rows, 4·world/data a slice; "v" (4,
+    3·world) rows 0:2 only (another axis' slice) and its columns by data
+    rank; "y" whole; "w" (6, 4) columns 2:4 on every rank."""
+    from repro_torch.core.reduce import Parts
+    c, ru, cv = rank % data, 4 * world // data, 3 * world // data
+    return Parts(((0, ((c * ru, (c + 1) * ru), (0, 5))),
+                  (1, ((0, 2), (c * cv, (c + 1) * cv))),
+                  None,
+                  (None, ((0, 6), (2, 4)))), data, pod_group)
+
+
+def scatter_rank(rank, world, seed):
+    """The reduce-scatter of ``AxisReduce`` on this rank (``all_reduce``
+    refused): the whole layout (``tree``), the sliced layout with every
+    rank a data rank, and at four ranks the pod layout (2 pods × 2 data
+    ranks) -> each layout's means, dtypes and ``buffer_bytes``."""
+    import torch.distributed as dist
+
+    from repro_torch.core.reduce import AxisReduce
+
+    def refuse(*a, **k):
+        raise AssertionError("AxisReduce called all_reduce")
+    dist.all_reduce = refuse
+    s = _scatter_shards(world, seed)
+    bf16 = torch.bfloat16
+    out = {}
+    ctx = AxisReduce("data", deterministic=True)
+    got = ctx.tree([torch.from_numpy(s["x"][rank]),
+                    torch.from_numpy(s["y"][rank]).to(bf16),
+                    torch.from_numpy(s["z"][rank])])
+    out["whole"] = ([_np(t) for t in got], [str(t.dtype) for t in got],
+                    ctx.buffer_bytes)
+    sliced = [torch.from_numpy(s["u"][rank]),
+              torch.from_numpy(s["v"][rank]).to(bf16),
+              torch.from_numpy(s["y"][rank]),
+              torch.from_numpy(s["w"][rank])]
+    layouts = {"sliced": (world, None)}
+    if world == 4:
+        groups = [dist.new_group([c, 2 + c]) for c in range(2)]
+        layouts["pods"] = (2, groups[rank % 2])
+    for name, (data, pod_group) in layouts.items():
+        ctx = AxisReduce("data", deterministic=True)
+        parts = scatter_parts(rank, world, data, pod_group)
+        got = ctx._reduce(sliced, parts=parts)
+        out[name] = ([_np(t) for t in got], [str(t.dtype) for t in got],
+                     ctx.buffer_bytes, parts.leaves)
+    return out
+
+
+def nccl_scatter_rank(rank, world, seed):
+    """``scatter_rank``'s layouts on this rank's card over NCCL (one card a
+    rank), and the sliced layout captured in a CUDA graph and replayed on
+    twice the shards -> each layout's means and dtypes, the replay's
+    means."""
+    import torch.distributed as dist
+
+    from repro_torch.core.reduce import AxisReduce
+    dev = torch.device("cuda", torch.cuda.current_device())
+    s = _scatter_shards(world, seed)
+    bf16 = torch.bfloat16
+
+    def put(key, dtype=torch.float32):
+        return torch.from_numpy(s[key][rank]).to(dev, dtype)
+    out = {}
+    ctx = AxisReduce("data", deterministic=True)
+    got = ctx.tree([put("x"), put("y", bf16), put("z")])
+    out["whole"] = ([_np(t.cpu()) for t in got], [str(t.dtype) for t in got])
+    sliced = [put("u"), put("v", bf16), put("y"), put("w")]
+    layouts = {"sliced": (world, None)}
+    if world == 4:
+        groups = [dist.new_group([c, 2 + c]) for c in range(2)]
+        layouts["pods"] = (2, groups[rank % 2])
+    for name, (data, pod_group) in layouts.items():
+        ctx = AxisReduce("data", deterministic=True)
+        parts = scatter_parts(rank, world, data, pod_group)
+        got = ctx._reduce(sliced, parts=parts)
+        out[name] = ([_np(t.cpu()) for t in got], [str(t.dtype) for t in got],
+                     parts.leaves)
+    ctx = AxisReduce("data", deterministic=True)
+    parts = scatter_parts(rank, world, world)
+    static = [t.clone() for t in sliced]
+    graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ctx._reduce(static, copy=False, parts=parts)     # buffers, comms
+        with torch.cuda.graph(graph, stream=side):
+            res = ctx._reduce(static, copy=False, parts=parts)
+    torch.cuda.current_stream().wait_stream(side)
+    for t, x in zip(static, sliced):
+        t.copy_(x * 2)
+    graph.replay()
+    torch.cuda.synchronize()
+    out["captured"] = [_np(t.cpu()) for t in res]
+    return out
+
+
+def tp_slices_rank(rank, world, model, pods):
+    """One evaluation of the wide tiny transformer (f32, plain paths)
+    through the hybrid engine's reduction on the ``(pods, world/(pods·
+    model), model)`` training mesh (``pods`` nodes of ranks) -> this
+    rank's unreduced loss and compute gradients, its reduced ψ and local
+    gradients, its ``Parts``, its local shard shapes and the global ranks
+    of its data group in group order."""
+    import os
+
+    import torch.distributed as dist
+    if pods > 1:
+        os.environ["LOCAL_WORLD_SIZE"] = str(world // pods)
+    from repro_torch.distributed.data_parallel import mesh_strategy
+    from repro_torch.launch.mesh import make_training_mesh, mesh_group
+    from repro_torch.launch.shardings import hybrid_params_placement
+    from repro_torch.models import build_model
+    cfg = tiny_tp_config(True)
+    m = build_model(cfg, kernels="reference", param_dtype=torch.float32,
+                    device="cpu")
+    m.init(0)
+    mesh = make_training_mesh(model, device="cpu")
+    local, pl = hybrid_params_placement(mesh, m.module)
+    strat = mesh_strategy(mesh)
+    strat.bind(local)
+    strat.prime(local)
+    sampler = FCPRSampler(make_lm_tokens(0, 16, 32, cfg.vocab_size),
+                          batch_size=4, seed=1)
+    batch = {k: torch.from_numpy(v) for k, v in sampler(0).items()}
+    raw = {}
+
+    def lg(params, b):
+        total, aux = m.loss_fn(b)
+        grads = torch.autograd.grad(total, params)
+        raw["loss"] = float(total.detach())
+        raw["grads"] = [_np(g) for g in grads]
+        return (total.detach().float(), aux.detach().float()), grads
+    (loss, _), grads = strat.reduce_ctx.wrap_loss_and_grad(lg)(local, batch)
+    return {"raw": raw, "loss": float(loss), "grads": [_np(g) for g in grads],
+            "parts": strat.reduce_ctx.parts().leaves,
+            "local_shapes": [tuple(t.shape) for t in local],
+            "group": dist.get_process_group_ranks(mesh_group(mesh)),
+            "mesh": tuple(mesh.shape)}
+
+
+def check_local_grads_are_slices(ranks: list) -> int:
+    """Hold ``tp_slices_rank``'s results: every rank's ψ is the rank-order
+    ``shard_mean`` of its data group's unreduced losses, and each local
+    gradient is exactly its part (``Parts``) of the ``shard_mean`` of the
+    group's unreduced gradients, computed here in rank order, bit for bit
+    -> the number of leaves a rank got as a data slice."""
+    from repro_torch.core.reduce import shard_mean
+    sliced = 0
+    for r, got in enumerate(ranks):
+        group = got["group"]
+        assert r in group and len(group) > 1
+        psi = shard_mean(torch.tensor([ranks[q]["raw"]["loss"]
+                                       for q in group]))
+        assert got["loss"] == float(psi), (r, got["loss"], float(psi))
+        for i, (mine, entry) in enumerate(zip(got["grads"], got["parts"])):
+            rows = torch.from_numpy(np.stack([ranks[q]["raw"]["grads"][i]
+                                              for q in group]))
+            full = shard_mean(rows).numpy()
+            want = full if entry is None else full[tuple(
+                slice(a, b) for a, b in entry[1])]
+            assert mine.shape == want.shape == got["local_shapes"][i]
+            np.testing.assert_array_equal(mine, want,
+                                          err_msg=f"rank {r} leaf {i}")
+            sliced += entry is not None and entry[0] is not None
+    return sliced // len(ranks)
+
+
 def _regression(batch_size=32, n_batches=4, dim=6):
     rng = np.random.RandomState(0)
     xs = rng.randn(batch_size * n_batches, dim).astype(np.float32)
@@ -428,7 +611,8 @@ def hybrid_suite_rank(rank, world, tiny_path, wide_path):
     """The hybrid engine's rank legs in one process a rank (one spawn
     for the whole test file): on two ranks the mesh legs, ``sharded-tp``
     and the tiny transformer on ``(1, 2)``; on four the tiny and the wide
-    transformer on ``(2, 2)`` and the fused tensor-parallel engine."""
+    transformer on ``(2, 2)``, the fused tensor-parallel engine and the
+    data mean's slices (``tp_slices_rank``)."""
     if world == 2:
         out = {leg: hybrid_mesh_rank(rank, world, leg)
                for leg in ("model1", "pure_tp", "chunked", "ring")}
@@ -440,4 +624,5 @@ def hybrid_suite_rank(rank, world, tiny_path, wide_path):
                                         False),
             "wide": tp_transformer_rank(rank, world, wide_path, 2, 3, 0.05,
                                         True),
-            "fused": tp_fused_rank(rank, world, 2, 8, 4)}
+            "fused": tp_fused_rank(rank, world, 2, 8, 4),
+            "slices": tp_slices_rank(rank, world, 2, 1)}

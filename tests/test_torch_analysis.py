@@ -415,8 +415,10 @@ def test_reduced_arch_under_production_mesh(multi_pod, fake_world):
     ``internlm2`` step (the global ``train_4k`` batch): its argument bytes
     are its local shards (each parameter cut as its spec says) of params,
     of the momentum and Alg. 2 state, and the batch it is handed; its
-    collectives are all-gathers over the flat data group and the model
-    group."""
+    collectives are one reduce-scatter an evaluation over the flat data
+    group (the data mean) and all-gathers: of the means over the flat
+    data group, of the parameters over the data axis and the model group,
+    and on the 512-rank mesh of the slice means over the pod ranks."""
     from repro_torch.launch.shardings import hybrid_params_placement
     from repro_torch.sharding import rules
     mesh = make_production_mesh(multi_pod)
@@ -439,9 +441,14 @@ def test_reduced_arch_under_production_mesh(multi_pod, fake_world):
     flat_data = tuple(range(0, mesh.size(), 16))   # the reduction's
     data_axis = tuple(range(0, 256, 16))           # FSDP's, within a pod
     model_g = tuple(range(16))
+    pod_g = (0, 256)                               # a slice's two keepers
     groups = collections.Counter(r.ranks for r in c.collectives)
-    assert {r.kind for r in c.collectives} == {"all-gather"}
-    assert set(groups) == {flat_data, data_axis, model_g}
+    assert {r.kind for r in c.collectives} == {"all-gather", "reduce-scatter"}
+    assert set(groups) == {flat_data, data_axis, model_g} | (
+        {pod_g} if multi_pod else set())
+    scatters = [r for r in c.collectives if r.kind == "reduce-scatter"]
+    assert len(scatters) == 1 + 5                  # one an evaluation
+    assert {r.ranks for r in scatters} == {flat_data}
     assert c.launches == {"flash_attention": 2 * 2 * (1 + 5),
                           "fused_xent": 1 + 5}
 

@@ -757,6 +757,46 @@ def test_hybrid_and_multihost_parity_on_card(cuda):
 
 
 @pytest.mark.cuda
+def test_nccl_reduce_scatter_across_cards_equals_the_gathered_mean(cuda):
+    """``AxisReduce``'s reduce-scatter over NCCL, one card a rank (up to
+    four): every rank's part of the whole, sliced and (at four) pod
+    layouts equals that part of the rank-order ``shard_mean`` of every
+    rank's leaf bit for bit, as over gloo on the CPU; the sliced layout
+    captured in a CUDA graph and replayed on twice the shards gives twice
+    the means, bit for bit (a power of two scales exactly)."""
+    import _torch_dist_workers as W
+    from repro_torch.core.reduce import shard_mean
+    from repro_torch.launch.env import spawn_ranks
+    world = min(4, torch.cuda.device_count())
+    if world < 2:
+        pytest.skip("needs two cards: NCCL refuses two ranks on one")
+    ranks = spawn_ranks(W.nccl_scatter_rank, world, 7, device="cuda",
+                        timeout=300)
+    s = W._scatter_shards(world, 7)
+    bf16 = torch.bfloat16
+
+    def mean(key, dtype=torch.float32, scale=1.0):
+        t = (torch.from_numpy(s[key]) * scale).to(dtype).float()
+        return shard_mean(t).to(dtype).float().numpy()
+    whole = [mean("x"), mean("y", bf16), mean("z")]
+    for r, got in enumerate(ranks):
+        for a, b in zip(got["whole"][0], whole):
+            np.testing.assert_array_equal(a, b, err_msg=f"rank {r} whole")
+        layouts = [k for k in got if k not in ("whole", "captured")]
+        assert layouts == (["sliced", "pods"] if world == 4 else ["sliced"])
+        for name, scale in [(k, 1.0) for k in layouts] + [("captured", 2.0)]:
+            full = [mean("u", scale=scale), mean("v", bf16, scale),
+                    mean("y", scale=scale), mean("w", scale=scale)]
+            means = got[name] if name == "captured" else got[name][0]
+            parts = got["sliced"][2] if name == "captured" else got[name][2]
+            for i, (a, f) in enumerate(zip(means, full)):
+                box = (tuple(slice(0, n) for n in f.shape) if parts[i] is None
+                       else tuple(slice(x, y) for x, y in parts[i][1]))
+                np.testing.assert_array_equal(a, f[box],
+                                              err_msg=f"rank {r} {name} {i}")
+
+
+@pytest.mark.cuda
 def test_data_parallel_parity_on_card(cuda):
     """The data-parallel engine on one NCCL rank against the single-device
     engine on the reference's least-squares rig: the one-rank gather and

@@ -4,7 +4,12 @@
     in-process ``torch.stack(shards).mean(0)`` bit for bit, for a scalar, a
     tree (a bf16 leaf: the f32 mean cast back, as ``jnp.mean`` does it) and
     the flat bucket of ``wrap_loss_and_grad``; ``sum_scalar`` equals the
-    stacked sum; a one-rank group is the identity, bit for bit; the
+    stacked sum; its reduce-scatter, over 2, 3 and 4 ranks with
+    ``all_reduce`` refused, gives every rank exactly its part (whole,
+    a data slice, a pod's half of one) of the ``shard_mean`` of every
+    rank's leaf in rank order, bit for bit, in at most 4·(2n + W) bytes
+    of buffers (2n + 2W floats where a pod splits a slice); a one-rank
+    group is the identity, bit for bit; the
     ``StalenessReduce`` weights equal the reference's bit for bit at
     staleness 0–20 (at τ = 100 ``exp`` is subnormal in f32, which XLA:CPU
     flushes to zero and torch keeps);
@@ -97,13 +102,113 @@ def test_axis_reduce_equals_the_stacked_mean(reduced):
 
 
 def test_axis_reduce_reports_its_buffer_bytes(reduced):
-    # one f32 bucket and one (world, n) buffer for each size reduced: the
-    # scalar (1), the tree (5·3 + 7) and the loss bucket (2 + 4·6 + 9)
+    # for each layout reduced, the scalar (1), the tree (5·3 + 7) and the
+    # loss bucket (2 + 4·6 + 9): one f32 bucket of n and one receive buffer
+    # of world·⌈n/world⌉ (the segments received, then the gathered means),
+    # at most 4·(2n + world) bytes together; no (world, n) buffer
     world, ranks = reduced
-    n = 1 + (15 + 7) + (2 + 24 + 9)
+    sizes = (1, 15 + 7, 2 + 24 + 9)
     for got in ranks:
-        assert got["buffer_bytes"] == {"bucket": 4 * n,
-                                       "gathered": 4 * world * n}
+        assert got["buffer_bytes"] == {
+            "bucket": 4 * sum(sizes),
+            "received": 4 * sum(world * -(-n // world) for n in sizes)}
+        assert sum(got["buffer_bytes"].values()) \
+            <= sum(4 * (2 * n + world) for n in sizes)
+
+
+@pytest.fixture(scope="module", params=[2, 3, 4],
+                ids=["2-ranks", "3-ranks", "4-ranks"])
+def scattered(request):
+    world = request.param
+    return world, spawn_ranks(W.scatter_rank, world, SEED, device="cpu",
+                              timeout=TIMEOUT)
+
+
+def _rank_order_mean(rows: np.ndarray, dtype=torch.float32) -> np.ndarray:
+    """Every rank's leaf, as its dtype sends it, stacked in rank order and
+    averaged by ``shard_mean`` in f32, cast back: the gather form's mean."""
+    t = torch.from_numpy(rows).to(dtype).float()
+    return shard_mean(t).to(dtype).float().numpy()
+
+
+def _box(entry, shape) -> tuple:
+    if entry is None:
+        return tuple(slice(0, n) for n in shape)
+    return tuple(slice(a, b) for a, b in entry[1])
+
+
+def test_reduce_scatter_whole_leaves_equal_the_gathered_mean(scattered):
+    # n = 23 divides none of 2, 3, 4: the last segments are shorter
+    world, ranks = scattered
+    s = W._scatter_shards(world, SEED)
+    bf16 = torch.bfloat16
+    want = [_rank_order_mean(s["x"]), _rank_order_mean(s["y"], bf16),
+            _rank_order_mean(s["z"])]
+    for r, got in enumerate(ranks):
+        means, dtypes, nbytes = got["whole"]
+        assert dtypes == ["torch.float32", "torch.bfloat16", "torch.float32"]
+        for name, a, b in zip("xyz", means, want):
+            np.testing.assert_array_equal(a, b, err_msg=f"rank {r} {name}")
+        n = 23
+        assert nbytes == {"bucket": 4 * n,
+                          "received": 4 * world * -(-n // world)}
+        assert sum(nbytes.values()) <= 4 * (2 * n + world)
+
+
+def test_reduce_scatter_keeps_each_ranks_part_of_the_gathered_mean(
+        scattered):
+    # each rank gets exactly its part of the rank-order mean of every
+    # rank's leaf, bit for bit; sliced: every rank a data rank; pods (at
+    # 4 ranks): 2 pods of 2 data ranks, each slice reduced half on each pod
+    world, ranks = scattered
+    layouts = ["sliced"] + (["pods"] if world == 4 else [])
+    assert sorted(k for k in ranks[0] if k != "whole") == sorted(layouts)
+    s = W._scatter_shards(world, SEED)
+    bf16 = torch.bfloat16
+    full = [_rank_order_mean(s["u"]), _rank_order_mean(s["v"], bf16),
+            _rank_order_mean(s["y"]), _rank_order_mean(s["w"])]
+    n = sum(x[0].size for x in (s["u"], s["v"], s["y"], s["w"]))
+    for layout in layouts:
+        for r, got in enumerate(ranks):
+            means, dtypes, nbytes, parts = got[layout]
+            assert parts[0][0] == 0 and parts[1][0] == 1   # sliced over data
+            assert dtypes[1] == "torch.bfloat16"
+            for i, (a, f) in enumerate(zip(means, full)):
+                want = f[_box(parts[i], f.shape)]
+                assert a.shape == want.shape
+                np.testing.assert_array_equal(
+                    a, want, err_msg=f"{layout} rank {r} leaf {i}")
+            pods = 2 if layout == "pods" else 1
+            assert sum(nbytes.values()) <= 4 * (2 * n + pods * world)
+
+
+def test_pod_slices_need_their_pod_group():
+    # slices kept by two ranks each (4 ranks, 2 data ranks) are gathered
+    # over the pod ranks: without their group the layout is refused
+    from repro_torch.core.reduce import Parts, _Plan
+    parts = Parts(((0, ((0, 4), (0, 3))),), data=2)
+    with pytest.raises(ValueError, match="pod_group"):
+        _Plan([(8, 3)], parts, 4, 0, "meta")
+    plan = _Plan([(8, 3)], Parts(parts.leaves, 2, object()), 4, 0, "meta")
+    assert plan.pods == 2 and plan.sizes == [6, 6, 6, 6]
+
+
+def test_plan_without_parts_splits_evenly_over_the_ranks():
+    # the pure data-parallel layout (no Parts) over one and more ranks
+    from repro_torch.core.reduce import _Plan
+    for world, sizes in ((1, [26]), (2, [13, 13]), (3, [9, 9, 8])):
+        assert _Plan([(), (), (8, 3)], None, world, 0, "meta").sizes == sizes
+
+
+@pytest.mark.parametrize("world", [2, 3])
+def test_exchange_forms_receive_the_rank_order_segments(world):
+    # both forms of AxisReduce.exchange (point-to-point, all_to_all_single)
+    # through the script that times them on the cards, at an n the ranks
+    # do not divide: each rank receives every rank's segment, in rank order
+    from repro_torch.launch.exchange_time import time_world
+    line = time_world(world, 1001, 1, "cpu")
+    assert line["same_bits"] and line["ranks"] == world
+    assert set(line) >= {"p2p", "a2a", "reduction"}
 
 
 def test_shard_mean_is_the_rank_order_sum_divided_once():

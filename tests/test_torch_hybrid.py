@@ -174,6 +174,15 @@ def test_fused_tensor_parallel_equals_per_step(four_ranks):
             np.testing.assert_array_equal(a, b)
 
 
+def test_data_mean_hands_each_rank_its_slices(four_ranks):
+    # the wide tiny transformer on (data=2, model=2): the reduce-scatter
+    # gives each rank exactly its FSDP slice (and model part) of the
+    # rank-order mean of its data group's gradients, bit for bit
+    ranks = [r["slices"] for r in four_ranks]
+    assert {r["mesh"] for r in ranks} == {(2, 2)}
+    assert W.check_local_grads_are_slices(ranks) > 0
+
+
 def test_make_host_mesh_rejects_non_divisible_model_parallel():
     with env.local_group("cpu"):
         with pytest.raises(MeshError, match="n=1 devices, M=2"):

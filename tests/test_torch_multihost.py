@@ -12,7 +12,9 @@ build ``(pod=2, data=2, model=1)`` with contiguous pod rows and the
 pod-major flat data order. The acceptance check: the harness runs four
 ranks on ``(pod=2, data=2)`` against four on ``(data=4)``, bit for bit on
 the per-step, fused (K=32) and ``sched`` legs, the stripes' union equal to
-the single-node epoch. Every rank is joined with a timeout.
+the single-node epoch. Eight ranks as two nodes on ``(pod=2, data=2,
+model=2)``: the data mean hands each rank its FSDP slices, bit for bit
+those of the rank-order mean. Every rank is joined with a timeout.
 """
 import pytest
 
@@ -64,6 +66,18 @@ def test_pod_mesh_over_two_nodes_is_pod_major():
         assert axes == ("pod", "data")
         assert block == (r, r + 1, 4) and (grank, gsize) == (r, 4)
         assert grid == [[[0], [1]], [[2], [3]]]   # pod rows: one node each
+
+
+def test_pod_mesh_data_mean_hands_each_rank_its_slices():
+    # eight ranks as two nodes: (pod=2, data=2, model=2); each FSDP slice
+    # is kept by one rank a pod, reduced half on each and gathered over
+    # the pod ranks, and equals that slice of the rank-order mean of the
+    # four ranks of its data group, bit for bit
+    ranks = spawn_ranks(W.tp_slices_rank, 8, 2, 2, device="cpu",
+                        timeout=TIMEOUT)
+    assert {r["mesh"] for r in ranks} == {(2, 2, 2)}
+    assert all(len(r["group"]) == 4 for r in ranks)
+    assert W.check_local_grads_are_slices(ranks) > 0
 
 
 def test_multihost_parity_4ranks_pods_vs_single_node():
