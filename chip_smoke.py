@@ -75,7 +75,15 @@ every layer and half of every MLP a rank), 4 per-step steps, each rank's
 replicated tensors (and at the end the whole params, gathered) bit for
 bit, each rank's launches counted on the device (32 ``flash_attention``
 and 1 ``fused_xent`` an evaluation), with s/step, peak and the bytes the
-tensor-parallel collectives move; ``hybrid_parity``, ``multihost_parity``
+tensor-parallel collectives move; ``hybrid_gqa`` makes the same checks on
+the head plan's KV groups: ``starcoder2_3b`` at full width cut to two
+layers, on four gloo ranks on ``(data=1, model=4)`` (6 query heads
+against one KV head a rank, KV groups of two ranks) beside a
+single-device run of the same config, and rank 0's step-1 gradient of
+every attention leaf within 5 % of that run's (``--tp-only`` runs the
+device line, the build, the kernel checks at ``hybrid_gqa``'s shapes,
+``train``, ``hybrid`` and ``hybrid_gqa``);
+``hybrid_parity``, ``multihost_parity``
 and ``zoo_parity`` run the three harnesses on the card (gloo ranks, and
 one NCCL rank for the fused legs; the zoo's kernel leg is ``--kernels
 cuda`` against ``reference``). Then the asynchronous parameter server
@@ -116,7 +124,8 @@ phases. ``analysis`` holds the analysis tier's meta-device count of one
 (FLOPs, launches, device time against the roofline's compute time, peak
 memory); ``--analysis-only`` runs the device line, the build, ``train``
 and ``analysis``. The phases that run only child processes (``resume``,
-``dp``, ``dp2``, ``hybrid``, the parity harnesses but ``async_parity``,
+``dp``, ``dp2``, ``hybrid``, ``hybrid_gqa``, the parity harnesses but
+``async_parity``,
 and ``async_resume``) run four at a time, after ``sched``, ``async_ps``
 and ``async_ps2`` and before ``async_faults`` (``child_phases``); every
 other phase runs alone on the card. Each phase prints one JSON line, with ``at_s``, the
@@ -159,6 +168,9 @@ XENT_MAIN = (8192, 1024, 32768, 32768)     # N = B·S, d, Vp, vocab
 ATTN_MAIN = (8, 1024, 16, 8, 64)           # B, S, H, K, hd (causal)
 SSD_MAIN = (8, 1024, 32, 64, 1, 128, 256)  # b, S, nh, hd, G, ds, chunk
 SSD_MAMBA2 = (1, 2048, 80, 64, 1, 128, 256)  # Mamba2-2.7B's mixer
+GQA_ATTN = ((8, 1024, 6, 1, 128),          # a hybrid_gqa rank: rep 6
+            (8, 1024, 24, 2, 128))         # its single-device run
+GQA_XENT = (8192, 3072, 49152, 49152)      # starcoder2_3b's tied head
 DT_INIT = math.log(math.expm1(0.01))       # dt_bias at init: dt ≈ 0.01–0.02
 PARITY_TIGHT = 1e-3                        # step-1 loss, relative
 CHUNK = 4                                  # K of the fused runs
@@ -536,6 +548,7 @@ def phase_checks() -> dict:
         check_attn((8, 128, 4, 2, 16), dtype)                 # tiny tier
         for B, S, H, K, hd, causal, window in ATTN_EDGES:
             check_attn((B, S, H, K, hd), dtype, causal=causal, window=window)
+        check_gqa_shapes(dtype)
         main["ssd_scan"] = check_ssd(SSD_MAIN, dtype, timed=True,
                                      dt_shift=DT_INIT)
         for shape in SSD_SHAPES:
@@ -547,6 +560,16 @@ def phase_checks() -> dict:
         for *shape, init_dt in SSD_EDGES:
             check_ssd(tuple(shape), dtype, dt_shift=DT_INIT if init_dt else 0.0)
     return main                    # the bf16 entries: the training dtype
+
+
+def check_gqa_shapes(dtype) -> None:
+    """``hybrid_gqa``'s kernel shapes (``starcoder2_3b``, batch 8 × seq
+    1024) against the plain versions: ``flash_attention`` on a rank's 6
+    query heads over one KV head and on the single-device run's 24 over 2,
+    ``fused_xent`` on the tied head."""
+    for shape in GQA_ATTN:
+        check_attn(shape, dtype)
+    check_xent(GQA_XENT, dtype, tied=True)
 
 
 def phase_train(model: str) -> dict:
@@ -1511,10 +1534,15 @@ def launch_child(out: str, spec: dict, argv: list):
     more: ``counted`` counts the kernels' launches on the device
     (``device_counted``, a fused run); ``replicas`` checksums every rank's
     replica after each step (``ReplicaCheck``, kept out of the walls and
-    the peak); ``probe`` records the head of every reduction's segments
+    the peak); ``first_grads``, a path, saves there the whole velocity of
+    the attention leaves after step 1 (``FirstVelocity``; inside
+    ``ReplicaCheck`` where there is one); ``probe`` records the head of every reduction's segments
     and means (``probe_reductions``, a per-step run); ``final_sum`` the
     device checksum
-    of the final params and rule state (``engine_checksum``)."""
+    of the final params and rule state (``engine_checksum``); ``layers``
+    cuts the config to that many layers (``dataclasses.replace``, as
+    ``launch.dryrun._cfg_with_blocks`` cuts it: the launcher has no depth
+    flag, as the reference's has none)."""
     torch.backends.cuda.matmul.allow_tf32 = False   # as the parent runs
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels.flash_attention import flash_attention
@@ -1525,31 +1553,51 @@ def launch_child(out: str, spec: dict, argv: list):
     for w in wrappers.values():
         w.launches = 0
     args = launcher.parse_args(argv)
-    check = ReplicaCheck(spec.get("tp", False)) if spec.get("replicas") \
-        else None
+    if spec.get("layers"):
+        import dataclasses
+        resolve = launcher.resolve_config
+        launcher.resolve_config = lambda a: dataclasses.replace(
+            resolve(a), num_layers=spec["layers"])
+    first = None
+    if spec.get("first_grads"):
+        first = FirstVelocity(spec["first_grads"])
+        build = launcher.build_model
+
+        def capture(*a, **kw):               # the leaves' names
+            first.model = build(*a, **kw)
+            return first.model
+
+        launcher.build_model = capture
+    check = ReplicaCheck(spec.get("tp", False), first) \
+        if spec.get("replicas") else None
+    on_step = check if check is not None else first
     reductions = probe_reductions() if spec.get("probe") else None
     device = None
     if spec.get("counted"):
         res, device = device_counted(
-            lambda p: launcher.run(args, profiler=p, on_step=check))
+            lambda p: launcher.run(args, profiler=p, on_step=on_step))
     else:
-        res = launcher.run(args, on_step=check)
+        res = launcher.run(args, on_step=on_step)
     peaks = [res["peak_bytes"]] + ([] if check is None else check.peaks)
     log = res["log"]
     tp = None
     if res["placement"] is not None:        # the tensor-parallel strategy
         pl = res["placement"]
         whole = pl.full(res["local_params"])
+        hd = res["model"].cfg.head_dim
+        attn = [lf for lf in pl.leaves
+                if lf.name in ("layers.0.mixer.wq", "layers.0.mixer.wk")]
         tp = {"bytes": res["tp_bytes"],
               "whole_params": replica_agreement_of(
                   replica_checksum(whole), whole[0].device),
               "split": sum(lf.tp_dim is not None for lf in pl.leaves),
               "gathered": sum(bool(lf.gathers) for lf in pl.leaves),
               "held": sum(t.numel() for t in res["local_params"]),
-              "attn_local_heads": {
-                  lf.name.rsplit(".", 1)[-1]: lf.compute.shape[1] // 64
-                  for lf in pl.leaves
-                  if lf.name in ("layers.0.mixer.wq", "layers.0.mixer.wk")}}
+              # compute heads, and the storage columns beside them
+              "attn_local_heads": {lf.name.rsplit(".", 1)[-1]:
+                                   lf.compute.shape[1] // hd for lf in attn},
+              "attn_storage_cols": {lf.name.rsplit(".", 1)[-1]:
+                                    lf.local.shape[1] for lf in attn}}
         del whole
     with open(out, "w") as fh:
         json.dump({"rank": process_index(), "ranks": res["ranks"],
@@ -1743,10 +1791,12 @@ class ReplicaCheck:
     replica checksum, gathered (``replica_agreement``), goes to ``rows``
     with the seconds it took. Its time and memory stay out of the engine's
     figures: the device is synchronised first, the peak so far is kept in
-    ``peaks``, and the peak counter is reset after the checksum."""
+    ``peaks``, and the peak counter is reset after the checksum. ``also``,
+    another ``on_step`` (``FirstVelocity``), runs inside the same timed
+    span."""
 
-    def __init__(self, tp: bool = False):
-        self.rows, self.peaks, self.tp = [], [], tp
+    def __init__(self, tp: bool = False, also=None):
+        self.rows, self.peaks, self.tp, self.also = [], [], tp, also
 
     def __call__(self, j: int, carry):
         dev = carry[1][0].device
@@ -1756,10 +1806,70 @@ class ReplicaCheck:
             self.peaks.append(torch.cuda.max_memory_allocated(dev))
         t0 = time.perf_counter()
         row = replica_agreement(carry, self.tp)
+        if self.also is not None:
+            self.also(j, carry)
         row["seconds"] = time.perf_counter() - t0
         if cuda:
             torch.cuda.reset_peak_memory_stats(dev)
         self.rows.append(row)
+
+
+ATTN_LEAF = re.compile(r"layers\.\d+\.mixer\.w[qkvo]")
+
+
+class FirstVelocity:
+    """``on_step`` that saves to ``out``, after step 1, the whole velocity
+    of every attention leaf (``ATTN_LEAF``), f32, by name. The momentum
+    rule's velocity starts at zero, so after one step it is −lr × the
+    step's gradient (the data mean's), taken before any decision of ISGD
+    can differ. A tensor-parallel run gathers those leaves
+    (``Placement.full``, every rank taking part) and its rank 0 saves
+    them. ``model``: the launcher's model (its leaves' names)."""
+
+    def __init__(self, out: str):
+        self.out, self.model = out, None
+
+    def __call__(self, j: int, carry):
+        import copy
+
+        from repro_torch.core.reduce import tree_leaves
+        from repro_torch.obs.console import process_index
+        if j != 1:
+            return
+        vel = list(tree_leaves(carry[0].base))
+        pl = getattr(carry[1][0], "_repro_placement", None)
+        if pl is None:
+            names = [n for n, _ in self.model.module.named_parameters()]
+            keep = [i for i, n in enumerate(names) if ATTN_LEAF.fullmatch(n)]
+            whole = [vel[i] for i in keep]
+        else:
+            names = [lf.name for lf in pl.leaves]
+            keep = [i for i, n in enumerate(names) if ATTN_LEAF.fullmatch(n)]
+            sub = copy.copy(pl)
+            sub.leaves = [pl.leaves[i] for i in keep]
+            whole = sub.full([vel[i] for i in keep])
+        if pl is None or process_index() == 0:
+            torch.save({names[i]: t.float().cpu()
+                        for i, t in zip(keep, whole)}, self.out)
+
+
+def first_grads_against(path: str, ref_path: str) -> dict:
+    """Two runs' step-1 velocities (``FirstVelocity``) leaf by leaf: the
+    largest over the leaves of ‖v − v_ref‖ / ‖v_ref‖ (``rel``) and of
+    max|v − v_ref| / max|v_ref| (``max_rel``), f64, and the leaf of the
+    largest ``rel``."""
+    v, ref = torch.load(path), torch.load(ref_path)
+    if sorted(v) != sorted(ref) or not ref:
+        raise SystemExit(f"step-1 velocities of different leaves: "
+                         f"{sorted(v)} against {sorted(ref)}")
+    rel, max_rel = {}, {}
+    for name, r in ref.items():
+        d = v[name].double() - r.double()
+        rel[name] = float(d.norm() / r.double().norm())
+        max_rel[name] = float(d.abs().max() / r.double().abs().max())
+    worst = max(rel, key=rel.get)
+    return {"leaves": len(ref), "rel": rel[worst], "worst_leaf": worst,
+            "max_rel": max(max_rel.values())}
 
 
 PROBE_HEAD = 4                   # elements of each segment a probe records
@@ -2074,46 +2184,10 @@ def phase_hybrid(per_step: dict) -> dict:
                tolerance=[rtol, atol], clear_of_limit=clear)
     ok = True
     for g in ranks:
-        dev = [abs(a - b) for a, b in zip(g["losses"], s_psi)]
-        evals = g["steps"] + sum(g["sub_iters"])
-        launches = {k: g["device_launches"][k] for k in DP_KERNELS}
-        expect = {k: per_eval[k] * evals for k in DP_KERNELS}
-        check_s = [r["seconds"] for r in g["replicas"]]
-        wall = g["wall"]
-        tpb = g["tp"]["bytes"]
-        rank = dict(
-            losses=g["losses"], accelerated=g["accelerated"],
-            sub_iters=g["sub_iters"], evaluations=evals,
-            max_abs_psi_dev=max(dev),
-            psi_within=all(x <= t for x, t in zip(dev, tol)),
-            decisions_equal_where_clear=all(
-                a == b for a, b, c in zip(
-                    g["accelerated"], ref.accelerated[:HYBRID_STEPS], clear)
-                if c),
-            replicated_equal_every_step=(
-                len(g["replicas"]) == HYBRID_STEPS
-                and all(r["equal"] for r in g["replicas"])),
-            whole_params_equal=g["tp"]["whole_params"]["equal"],
-            launches=launches, expected_launches=expect,
-            launches_per_eval={k: launches[k] / evals for k in DP_KERNELS},
-            attn_local_heads=g["tp"]["attn_local_heads"],
-            params_held=g["tp"]["held"], params_total=g["params"],
-            split_leaves=g["tp"]["split"],
-            gathered_leaves=g["tp"]["gathered"],
-            peak_mem_gib=g["peak_bytes"] / 2**30,
-            s_per_step=(wall[-1] - wall[0] - sum(check_s[:-1]))
-            / (len(wall) - 1),
-            tp_sum_bytes_per_eval=tpb["sums"] / evals,
-            tp_gather_bytes_per_eval=tpb["gathers_per_eval"],
-            tp_bytes_per_eval=tpb["sums"] / evals + tpb["gathers_per_eval"],
-            reduce_bytes=g["reduce_bytes"])
+        rank, good = tp_rank_report(g, s_psi, ref.accelerated, clear, tol,
+                                    per_eval)
         out[f"rank{g['rank']}"] = rank
-        ok &= (rank["psi_within"] and rank["decisions_equal_where_clear"]
-               and rank["replicated_equal_every_step"]
-               and rank["whole_params_equal"]
-               and launches == expect
-               and all(v > 0 for v in launches.values())
-               and rank["attn_local_heads"] == {"wq": 8, "wk": 4})
+        ok &= good and rank["attn_local_heads"] == {"wq": 8, "wk": 4}
     same_logs = all(ranks[0][k] == ranks[1][k] for k in DP_KEYS)
     out.update(logs_equal_across_ranks=same_logs,
                seconds=time.perf_counter() - t0)
@@ -2121,6 +2195,147 @@ def phase_hybrid(per_step: dict) -> dict:
     if not (ok and same_logs):
         raise SystemExit("hybrid: the two tensor-parallel ranks failed a "
                          "check (above)")
+    return {k: ranks[0]["device_launches"][k] for k in DP_KERNELS}
+
+
+def tp_rank_report(g: dict, s_psi: list, s_accel: list, clear: list,
+                   tol: list, per_eval: dict) -> tuple:
+    """One tensor-parallel rank's child result against the single-device
+    run's ψ (``s_psi``) and decisions -> (its report, whether it passed
+    the checks: ψ within ``tol``, decisions equal where ``clear``, the
+    replicated tensors alike after every step, the gathered whole params
+    alike, the device-counted launches the per-evaluation count ×
+    evaluations)."""
+    steps = len(s_psi)
+    dev = [abs(a - b) for a, b in zip(g["losses"], s_psi)]
+    evals = g["steps"] + sum(g["sub_iters"])
+    launches = {k: g["device_launches"][k] for k in DP_KERNELS}
+    expect = {k: per_eval[k] * evals for k in DP_KERNELS}
+    check_s = [r["seconds"] for r in g["replicas"]]
+    wall = g["wall"]
+    tpb = g["tp"]["bytes"]
+    rank = dict(
+        losses=g["losses"], accelerated=g["accelerated"],
+        sub_iters=g["sub_iters"], evaluations=evals,
+        max_abs_psi_dev=max(dev),
+        psi_within=all(x <= t for x, t in zip(dev, tol)),
+        decisions_equal_where_clear=all(
+            a == b for a, b, c in zip(g["accelerated"], s_accel[:steps],
+                                      clear) if c),
+        replicated_equal_every_step=(
+            len(g["replicas"]) == steps
+            and all(r["equal"] for r in g["replicas"])),
+        whole_params_equal=g["tp"]["whole_params"]["equal"],
+        launches=launches, expected_launches=expect,
+        launches_per_eval={k: launches[k] / evals for k in DP_KERNELS},
+        attn_local_heads=g["tp"]["attn_local_heads"],
+        attn_storage_cols=g["tp"]["attn_storage_cols"],
+        params_held=g["tp"]["held"], params_total=g["params"],
+        split_leaves=g["tp"]["split"], gathered_leaves=g["tp"]["gathered"],
+        peak_mem_gib=g["peak_bytes"] / 2**30,
+        s_per_step=(wall[-1] - wall[0] - sum(check_s[:-1]))
+        / (len(wall) - 1),
+        tp_sum_bytes_per_eval=tpb["sums"] / evals,
+        tp_gather_bytes_per_eval=tpb["gathers_per_eval"],
+        tp_bytes_per_eval=tpb["sums"] / evals + tpb["gathers_per_eval"],
+        reduce_bytes=g["reduce_bytes"])
+    ok = (rank["psi_within"] and rank["decisions_equal_where_clear"]
+          and rank["replicated_equal_every_step"]
+          and rank["whole_params_equal"] and launches == expect
+          and all(v > 0 for v in launches.values()))
+    return rank, ok
+
+
+GQA_ARCH, GQA_LAYERS, GQA_MODEL = "starcoder2_3b", 2, 4
+# step-1 attention gradients, ‖v − v_ref‖ / ‖v_ref‖: 1.5e-2 on an H100 in
+# bf16; a reversed KV concat or a skipped KV sum reads 0.7–1.4
+GQA_GRAD_RTOL = 0.05
+
+
+def gqa_args(steps: int) -> list:
+    """``starcoder2_3b``'s training run at full width: --batch 8 --seq
+    1024, as ``train_args``."""
+    return ["--arch", GQA_ARCH, "--kernels", "cuda", "--precision", "bf16",
+            "--batch", "8", "--seq", "1024", "--n-seqs", "32", "--steps",
+            str(steps), "--k-sigma", "1.0", "--stop", "3", "--device", "cuda"]
+
+
+def phase_hybrid_gqa() -> dict:
+    """The head plan's KV groups on the card: ``starcoder2_3b`` at full
+    width (d 3072, 24 query and 2 KV heads of 128, d_ff 12288, vocab
+    49152) cut to GQA_LAYERS layers in the child (``launch_child``'s
+    ``layers``), bf16 through ``--kernels cuda``, over four gloo ranks
+    sharing the card on ``(data=1, model=4)`` (``--engine hybrid
+    --model-parallel 4``): KV groups of two ranks, each rank computing 6
+    query heads against its one KV head while it stores a quarter of the
+    columns (768 of ``wq``, 64 of ``wk``: half a head). HYBRID_STEPS
+    per-step steps with the subproblem allowed to fire, beside a
+    single-device run of the same config, seed and batches (a fifth
+    child). ``hybrid``'s checks (``tp_rank_report``): each rank's ψ within
+    the bf16 ``fused_xent`` tolerance of the single-device run's,
+    decisions equal where its ψ is clear of its limit, the ranks' logs
+    equal bit for bit, the replicated tensors alike after every step and
+    the gathered whole params at the end, the device-counted
+    ``flash_attention`` and ``fused_xent`` launches the per-evaluation
+    count × evaluations; and the compute heads ``{"wq": 6, "wk": 1}``.
+    ψ sits near ln V at initialisation, so its tolerance cannot see a wrong
+    head plan; the step-1 gradient can: rank 0's step-1 velocity of every
+    attention leaf, gathered whole (``FirstVelocity``), is held against
+    the single-device run's within GQA_GRAD_RTOL of its norm, leaf by leaf
+    (``first_grads_against``). Prints s/step, peak GiB a rank and the tensor-parallel bytes an
+    evaluation. A correctness check, not a speed figure (gloo stages
+    every collective through the host)."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.numerics import TOLERANCES
+    t0 = time.perf_counter()
+    rtol, atol = TOLERANCES["fused_xent"]["bfloat16"]
+    argv = gqa_args(HYBRID_STEPS)
+    spec = {"layers": GQA_LAYERS}
+    tp_argv = argv + [
+        "--engine", "hybrid", "--model-parallel", str(GQA_MODEL),
+        "--dist-backend", "gloo", "--coordinator",
+        f"127.0.0.1:{free_port()}", "--num-processes", str(GQA_MODEL)]
+    with tempfile.TemporaryDirectory(prefix="hybrid_gqa_", dir=ROOT) as d:
+        grads = [os.path.join(d, "grads_tp.pt"), os.path.join(d, "grads.pt")]
+        *ranks, single = run_children(
+            [tp_argv + ["--process-id", str(r)] for r in range(GQA_MODEL)]
+            + [argv],
+            [os.path.join(d, f"rank{r}.json") for r in range(GQA_MODEL)]
+            + [os.path.join(d, "single.json")],
+            [dict(spec, counted=True, replicas=True, tp=True,
+                  first_grads=grads[0])] * GQA_MODEL
+            + [dict(spec, first_grads=grads[1])])
+        step1 = first_grads_against(*grads)
+    s_psi, s_lim = single["losses"], single["limits"]
+    tol = [atol + rtol * abs(x) for x in s_psi]
+    clear = [not math.isfinite(lim) or abs(p - lim) > t
+             for p, lim, t in zip(s_psi, s_lim, tol)]
+    cfg = dataclasses.replace(get_config(GQA_ARCH), num_layers=GQA_LAYERS)
+    per_eval = launches_per_eval(cfg)
+    out = dict(config=cfg.name, layers=GQA_LAYERS,
+               heads=[cfg.num_heads, cfg.num_kv_heads, cfg.head_dim],
+               mesh={"data": 1, "model": GQA_MODEL}, backend="gloo",
+               steps=HYBRID_STEPS, global_batch=8, single_device_losses=s_psi,
+               single_device_accelerated=single["accelerated"],
+               tolerance=[rtol, atol], clear_of_limit=clear,
+               step1_attn_grads=dict(step1, bound=GQA_GRAD_RTOL,
+                                     within=step1["rel"] <= GQA_GRAD_RTOL))
+    ok = True
+    for g in ranks:
+        rank, good = tp_rank_report(g, s_psi, single["accelerated"], clear,
+                                    tol, per_eval)
+        out[f"rank{g['rank']}"] = rank
+        ok &= good and rank["attn_local_heads"] == {"wq": 6, "wk": 1}
+    same_logs = all(r[k] == ranks[0][k] for r in ranks for k in DP_KEYS)
+    out.update(logs_equal_across_ranks=same_logs,
+               seconds=time.perf_counter() - t0)
+    emit("hybrid_gqa", **out)
+    if not (ok and same_logs and out["step1_attn_grads"]["within"]):
+        raise SystemExit("hybrid_gqa: the four tensor-parallel ranks failed "
+                         "a check (above)")
     return {k: ranks[0]["device_launches"][k] for k in DP_KERNELS}
 
 
@@ -3304,9 +3519,10 @@ CHILD_JOBS = 4                             # child phases at a time (card memory
 def child_phases(sched_ref: dict, async_ref: dict, per_step: dict,
                  chunked: dict) -> dict:
     """The phases whose runs are child processes of the launcher or of a
-    harness (``resume``, ``async_resume``, ``dp``, ``dp2``, ``hybrid`` and
-    the parity legs), each in a thread of its own, CHILD_JOBS at a time,
-    longest first: their checks are bit for bit or within a tolerance,
+    harness (``hybrid_gqa``, ``resume``, ``async_resume``, ``dp``,
+    ``dp2``, ``hybrid`` and the parity legs), each in a thread of its own,
+    CHILD_JOBS at a time, longest first: their checks are bit for bit or
+    within a tolerance,
     and none is timed against a bound. ``async_parity`` is not among them:
     its two-worker leg's convergence depends on how the threads of one
     process interleave, and on a shared host it failed its ψ̄ tolerance
@@ -3316,12 +3532,14 @@ def child_phases(sched_ref: dict, async_ref: dict, per_step: dict,
     walls and s/step include the others' share of the card and the host.
     Every phase runs to its end; then any failure raises.
     The line ``child_phases`` gives their wall and what this process
-    still holds on the card. -> ``hybrid``'s rank-0 device launches."""
+    still holds on the card. -> ``hybrid``'s and ``hybrid_gqa``'s rank-0
+    device launches, by phase."""
     from concurrent.futures import ThreadPoolExecutor
     torch.cuda.empty_cache()                # the children's room
     t0 = time.perf_counter()
     held = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
-    jobs = {"resume": partial(phase_resume, sched_ref),
+    jobs = {"hybrid_gqa": phase_hybrid_gqa,
+            "resume": partial(phase_resume, sched_ref),
             "async_resume": partial(phase_async_resume, async_ref),
             "parity": partial(run_legs, dp_parity_legs()
                               + hybrid_parity_legs()
@@ -3339,7 +3557,7 @@ def child_phases(sched_ref: dict, async_ref: dict, per_step: dict,
          seconds=time.perf_counter() - t0)
     if failures:
         raise SystemExit("\n".join(failures))
-    return futures["hybrid"].result()
+    return {name: futures[name].result() for name in ("hybrid", "hybrid_gqa")}
 
 
 def serve_phases():
@@ -3369,6 +3587,13 @@ def main():
         phase_device()
         phase_build()
         return async_phases(phase_train("transformer"))
+    if sys.argv[1:2] == ["--tp-only"]:
+        phase_device()
+        phase_build()
+        for dtype in (torch.float32, torch.bfloat16):
+            check_gqa_shapes(dtype)
+        phase_hybrid(phase_train("transformer"))
+        return phase_hybrid_gqa()
     if sys.argv[1:2] == ["--analysis-only"]:
         phase_device()
         phase_build()
@@ -3420,7 +3645,8 @@ def main():
                         "launches": train[path]["launches"][name],
                         "launches_by_path": dict(
                             {m: train[m]["launches"][name] for m in MODELS},
-                            hybrid_rank0=hybrid.get(name, 0),
+                            hybrid_rank0=hybrid["hybrid"].get(name, 0),
+                            hybrid_gqa_rank0=hybrid["hybrid_gqa"].get(name, 0),
                             async_ps=async_launches.get(name, 0)),
                         "max_abs_err": r["max_abs"], "ms": r["kernel_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

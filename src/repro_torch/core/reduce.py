@@ -66,8 +66,9 @@ which is all a step needs.
 In analysis mode (``repro_torch.analysis``) every collective records
 itself (``analysis.count.collective``): the exchange as the reduce-scatter
 it is, with its operand (the bucket) and result (the rank's segment)
-bytes, and each gather of means as an all-gather; ``axis_sum`` gathers
-through ``gather_list`` and so records once. A count is made over a gloo
+bytes, and each gather of means as an all-gather; ``axis_sum`` records
+its exchange as a reduce-scatter and gathers its sums through
+``gather_list``. A count is made over a gloo
 or fake group, so it models ``exchange_a2a``: the collective's record
 and no device op. Over NCCL ``exchange_p2p`` also copies the rank's own
 segment on the device (n/W f32 read and written), work the count does
@@ -115,18 +116,34 @@ def gather_list(x: torch.Tensor, group) -> list:
 
 
 def axis_sum(x: torch.Tensor, group) -> torch.Tensor:
-    """The sum of ``x`` over the ranks of ``group`` (the model axis'
-    partial sums): gathered in rank order, added in f32 as ``shard_sum``
-    adds, cast back to ``x.dtype``; the same bits on every rank. Never an
-    ``all_reduce``. A one-rank group returns ``x``."""
+    """The sum of ``x`` over the ranks of ``group`` (the model axis' partial
+    sums), as a reduce-scatter then a gather: each rank adds its ⌈n/W⌉
+    elements of every rank's ``x`` in f32 in rank order, as ``shard_sum``
+    adds, casts them back to ``x.dtype`` and the W sums are gathered in
+    rank order. So each element is the gather form's ``((x_0 + x_1) + …)``
+    in f32, cast once, the same bits on every rank, and a rank receives
+    2(W−1)/W of ``x`` where gathering every rank's ``x`` took W − 1 copies
+    of it. Never an ``all_reduce``. A one-rank group returns ``x``."""
     import torch.distributed as dist
-    if dist.get_world_size(group) == 1:
+    world = dist.get_world_size(group)
+    if world == 1:
         return x
-    parts = gather_list(x, group)
-    out = parts[0].to(torch.float32, copy=True)
-    for p in parts[1:]:
-        out.add_(p.to(torch.float32))
-    return out.to(x.dtype)
+    n = x.numel()
+    m = _ceil(n, world)
+    flat = x.reshape(-1)
+    if world * m != n:
+        flat = torch.cat([flat, flat.new_zeros(world * m - n)])
+    got = flat.new_empty(world, m)
+    _record("reduce-scatter", m * x.element_size(),
+            flat.numel() * x.element_size(), group)
+    exchange = exchange_p2p if dist.get_backend(group) == "nccl" \
+        else exchange_a2a
+    exchange(flat, got, [m] * world, group)
+    mine = got[0].to(torch.float32, copy=True)
+    for r in range(1, world):
+        mine.add_(got[r].to(torch.float32))
+    sums = gather_list(mine.to(x.dtype), group)
+    return torch.cat(sums)[:n].view(x.shape)
 
 
 def shard_mean(stacked: torch.Tensor, out: Optional[torch.Tensor] = None):

@@ -37,7 +37,23 @@ forward, sum backward, at a column-parallel input; ``reduce_out``: sum
 forward, identity backward, at a row-parallel output). Never
 ``all_reduce``: every replicated value is the same bits on every rank.
 The kernels run unchanged on local tensors: ``flash_attention`` on the
-rank's H/M query and K/M KV heads, ``fused_xent`` on the gathered head.
+rank's query and KV heads (H/M and K/M, or under the head plan's KV groups
+its 1–⌈rep/m⌉ query heads against one KV head), ``fused_xent`` on the
+gathered head.
+
+Where the head plan has KV groups (``launch.shardings``), the group's
+exchanges run over a process group of its own m ranks
+(``launch.mesh.kv_group``: one a group, made with ``dist.new_group``, so
+a collective moves the group's bytes, 1/K of the model row's; the fake
+256/512-rank group of the dry-run takes them alike). The forward's is the
+gather of the storage slices (``Placement.gather_``); the backward's acts
+on the finished gradients of the compute slices, once an evaluation
+after the backward (``Placement.kv_grads``: ``kv_concat`` of ``wq`` and
+``wo``, ``sum`` over the group of ``wk`` and ``wv``), so the module
+holds only the
+rank's heads and a recomputed layer exchanges nothing. Both count their
+bytes (``moved``, ``Placement.gather_bytes``) and, in analysis mode,
+record themselves through ``gather_list``.
 
 One engine, one step path: ``make_hybrid_step`` runs the body every other
 synchronous engine runs, ``train.trainer.make_step_core`` (the fused twin:
@@ -184,21 +200,99 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+class _ShardHidden(torch.autograd.Function):
+    """The rank's 1/M of the hidden stream's last dim (a copy): narrow
+    forward, the ranks' gradient slices gathered backward."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return tp.slice_last(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.gather_last(g), None
+
+
+class _UnshardHidden(torch.autograd.Function):
+    """The hidden stream whole from the ranks' slices: gather forward,
+    the rank's slice of the (replicated) gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return tp.gather_last(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.slice_last(g), None
+
+
 class TensorParallel:
     """The model axis of an evaluation: its group and size, the two
     autograd collectives the model calls (``copy_in``, ``reduce_out``),
-    and ``moved``, the bytes this rank has received in model-axis sums."""
+    the KV-group exchanges of the gradients (``sum`` over a KV group,
+    ``kv_concat``),
+    and ``moved``, the bytes this rank has received in model-axis sums and
+    KV-group exchanges; ``shard``/``unshard`` hold the hidden stream as
+    the rank's slice of its last dim between the layers of a checkpointed
+    stack (``models.transformer.forward``)."""
 
     def __init__(self, group):
         import torch.distributed as dist
         self.group = group
         self.size = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
         self.moved = 0
 
-    def sum(self, x):
-        """``core.reduce.axis_sum`` over the model ranks (no autograd)."""
+    def slice_last(self, x):
+        """The rank's 1/size of ``x``'s last dim, contiguous (so a saved
+        slice holds no reference to the whole); the last dim must divide
+        over the ranks."""
+        if x.shape[-1] % self.size:
+            raise ValueError(f"a last dim of {x.shape[-1]} does not divide "
+                             f"over {self.size} model ranks")
+        n = x.shape[-1] // self.size
+        return x.narrow(-1, self.rank * n, n).contiguous()
+
+    def gather_last(self, x):
+        """The ranks' slices ``x`` concatenated along the last dim in rank
+        order (exact)."""
+        from repro_torch.core.reduce import gather_list
         self.moved += (self.size - 1) * x.numel() * x.element_size()
-        return axis_sum(x, self.group)
+        return torch.cat(gather_list(x, self.group), dim=-1)
+
+    def shard(self, x):
+        return _ShardHidden.apply(x, self)
+
+    def unshard(self, x):
+        return _UnshardHidden.apply(x, self)
+
+    def sum(self, x, group=None):
+        """``core.reduce.axis_sum`` over the model ranks, or over ``group``
+        (a KV group: the gradient of the KV head its ranks share); no
+        autograd. A rank receives 2(W−1)/W of ``x``."""
+        import torch.distributed as dist
+        group = self.group if group is None else group
+        w = dist.get_world_size(group)
+        self.moved += 2 * (w - 1) * x.numel() * x.element_size() // w
+        return axis_sum(x, group)
+
+    def kv_concat(self, x, dim: int, lengths: list, group):
+        """The KV group's ranks' ``x`` (rank j's ``lengths[j]`` wide along
+        ``dim``), gathered in rank order and concatenated along ``dim``;
+        each padded with zeros to the widest first, as a gather takes
+        equal shapes."""
+        from repro_torch.core.reduce import gather_list
+        w = max(lengths)
+        if x.shape[dim] < w:
+            pad = list(x.shape)
+            pad[dim] = w - x.shape[dim]
+            x = torch.cat([x, x.new_zeros(pad)], dim=dim)
+        self.moved += (len(lengths) - 1) * x.numel() * x.element_size()
+        parts = gather_list(x, group)
+        return torch.cat([p.narrow(dim, 0, n) for p, n in zip(parts, lengths)],
+                         dim=dim)
 
     def copy_in(self, x):
         return _CopyToModel.apply(x, self)
@@ -242,7 +336,11 @@ class TensorParallelReduce(ReduceCtx):
 
     def prime(self, tensors, device) -> None:
         self.placement.gather_()
-        self.data.prime(self.placement.compute, device, self.parts())
+        # the data mean takes each gradient in its gathered shape
+        # (``Placement.kv_grads``)
+        self.data.prime([torch.empty(lf.gathered, device="meta")
+                         for lf in self.placement.leaves],
+                        device, self.parts())
         self.tp.sum(torch.zeros(1, device=device))
 
     @property
@@ -252,7 +350,10 @@ class TensorParallelReduce(ReduceCtx):
     def wrap_loss_and_grad(self, loss_and_grad: Callable) -> Callable:
         def local(params, batch):
             with tensor_parallel(self.tp):
-                return loss_and_grad(self.placement.compute, self.rows(batch))
+                out, grads = loss_and_grad(self.placement.compute,
+                                           self.rows(batch))
+            grads = list(grads)
+            return out, self.placement.kv_grads(grads, self.tp)
 
         mean = self.data.wrap_loss_and_grad(local, parts=self.parts)
 

@@ -123,9 +123,7 @@ def build_step(model, mesh, shape, *, inconsistent=True, fsdp=True,
     if strat.tensor_parallel:
         local, placement = hybrid_params_placement(mesh, model.module,
                                                    fsdp=fsdp)
-        gathered = sum(lf.compute.numel() * lf.compute.element_size()
-                       - lf.local.numel() * lf.local.element_size()
-                       for lf in placement.leaves if lf.gathers)
+        gathered = placement.held_bytes()
     else:       # no model axis past 1: replicated, as the launcher runs it
         local = model.params()
     icfg = ISGDConfig(n_batches=64, stop=isgd_stop)

@@ -17,7 +17,11 @@ bit for bit. ``mesh_group`` is the reduction's group over those ranks in
 that order: a mesh dimension's group where there is one data axis, a
 group made with ``dist.new_group`` over the flattened ``(pod, data)``
 ranks otherwise (every rank makes every model column's group, in the same
-order). ``model_group`` is the group of the tensor-parallel axis.
+order). ``model_group`` is the group of the tensor-parallel axis;
+``kv_group(mesh, m)`` the group of this rank's m consecutive model ranks
+(the KV group of the attention's head plan, ``launch.shardings``), made
+with ``dist.new_group`` for every such run of every model row, by every
+rank in the same order.
 
 :func:`make_data_mesh` is the 1-D ``("data",)`` mesh of the pure
 data-parallel engine. :func:`make_production_mesh` is the dry-run's
@@ -161,6 +165,31 @@ def model_group(mesh):
     if "model" not in (mesh.mesh_dim_names or ()):
         return None
     return mesh.get_group("model")
+
+
+def kv_group(mesh, m: int):
+    """The process group of this rank's KV group (module doc): model
+    ranks ``g·m … g·m+m−1`` of its model row, g its model coordinate over
+    m; made once a mesh and m (every rank makes every row's groups, in the
+    same order, so it must be called on every rank) and kept on the
+    mesh."""
+    import torch.distributed as dist
+    cache = getattr(mesh, "_repro_kv_groups", None)
+    if cache is None:
+        cache = mesh._repro_kv_groups = {}
+    if m not in cache:
+        grid = mesh.mesh.reshape(-1, mesh.shape[-1])       # (rows, M)
+        if grid.shape[1] % m:
+            raise MeshError(f"KV groups of {m} ranks do not divide the "
+                            f"{grid.shape[1]} model ranks")
+        me = dist.get_rank()
+        for row in grid.tolist():
+            for g in range(0, len(row), m):
+                ranks = row[g:g + m]
+                group = dist.new_group(ranks)
+                if me in ranks:
+                    cache[m] = group
+    return cache[m]
 
 
 def local_data_block(mesh, axis=None) -> tuple:

@@ -30,6 +30,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.flash_attention.ops import rows_per_chunk
+
 Q_CHUNK = 512                        # query rows per chunk of the reference path
 
 
@@ -77,6 +79,76 @@ def mlp(p, x, activation="silu"):
     return (act(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
 
 
+def _attend_chunk(qc, k, v, *, causal: bool, window: Optional[int],
+                  q0: int):
+    """One query chunk of ``_attend_chunked``: qc (B, c, H, hd) at
+    position q0 relative to k[0] -> (B, c, K, rep, dv)."""
+    B, c, H, hd = qc.shape
+    Sk, K = k.shape[1], k.shape[2]
+    rep = H // K
+    kpos = torch.arange(Sk, device=qc.device)
+    qb = qc.reshape(B, c, K, rep, hd)
+    s = torch.einsum("bqkrd,bskd->bkrqs", qb, k).to(torch.float32) \
+        * (1.0 / math.sqrt(hd))
+    qpos = q0 + torch.arange(c, device=qc.device)
+    mask = torch.ones((c, Sk), dtype=torch.bool, device=qc.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.einsum("bkrqs,bskd->bqkrd", p, v)
+
+
+def _attend_loop(q, k, v, causal, window, q_offset):
+    B, Sq, H, _ = q.shape
+    qc = rows_per_chunk(Sq, Q_CHUNK)
+    outs = [_attend_chunk(q[:, ci:ci + qc], k, v, causal=causal,
+                          window=window, q0=q_offset + ci)
+            for ci in range(0, Sq, qc)]
+    return torch.cat(outs, dim=1).reshape(B, Sq, H, v.shape[-1])
+
+
+class _ChunkedAttend(torch.autograd.Function):
+    """``_attend_chunked`` with a backward that recomputes one query chunk
+    at a time: the forward is the same operations, no chunk's scores are
+    kept; the backward differentiates each chunk against every key (``dq``
+    the chunk's own, ``dk`` and ``dv`` summed in f32 in chunk order and
+    cast once), as ``kernels.flash_attention.ops``' backward does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = causal, window, q_offset
+        return _attend_loop(q, k, v, causal, window, q_offset)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        causal, window, q_offset = ctx.mask
+        Sq = q.shape[1]
+        qc = rows_per_chunk(Sq, Q_CHUNK)
+        f32 = torch.float32
+        dq = torch.empty_like(q)
+        dk = torch.zeros(k.shape, dtype=f32, device=k.device)
+        dv = torch.zeros(v.shape, dtype=f32, device=v.device)
+        with torch.enable_grad():
+            for q0 in range(0, Sq, qc):
+                ins = (q[:, q0:q0 + qc].detach().requires_grad_(True),
+                       k.detach().requires_grad_(True),
+                       v.detach().requires_grad_(True))
+                o = _attend_chunk(*ins, causal=causal, window=window,
+                                  q0=q_offset + q0)
+                dqc, dkc, dvc = torch.autograd.grad(
+                    o, ins, g[:, q0:q0 + qc].reshape(o.shape))
+                del o
+                dq[:, q0:q0 + qc] = dqc
+                dk += dkc
+                dv += dvc
+        return dq, dk.to(k.dtype), dv.to(v.dtype), None, None, None
+
+
 def _attend_chunked(q, k, v, *, causal: bool, window: Optional[int],
                     q_offset: int = 0):
     """The ``--kernels reference`` attention path. q: (B, Sq, H, hd);
@@ -84,29 +156,14 @@ def _attend_chunked(q, k, v, *, causal: bool, window: Optional[int],
     over query chunks and materializes (B, K, rep, qc, Sk) scores per
     chunk; scores in the input dtype upcast to f32, scaled by 1/√hd,
     probabilities cast back to v.dtype. ``q_offset`` is the position of
-    q[0] relative to k[0]."""
-    B, Sq, H, hd = q.shape
-    Sk, K = k.shape[1], k.shape[2]
-    rep = H // K
-    qc = min(Q_CHUNK, Sq)
-    while Sq % qc:                   # largest divisor of Sq <= Q_CHUNK
-        qc -= 1
-    scale = 1.0 / math.sqrt(hd)
-    kpos = torch.arange(Sk, device=q.device)
-    outs = []
-    for ci in range(Sq // qc):
-        qb = q[:, ci * qc:(ci + 1) * qc].reshape(B, qc, K, rep, hd)
-        s = torch.einsum("bqkrd,bskd->bkrqs", qb, k).to(torch.float32) * scale
-        qpos = q_offset + ci * qc + torch.arange(qc, device=q.device)
-        mask = torch.ones((qc, Sk), dtype=torch.bool, device=q.device)
-        if causal:
-            mask &= kpos[None, :] <= qpos[:, None]
-        if window is not None:
-            mask &= kpos[None, :] > qpos[:, None] - window
-        s = torch.where(mask, s, torch.full_like(s, -1e30))
-        p = torch.softmax(s, dim=-1).to(v.dtype)
-        outs.append(torch.einsum("bkrqs,bskd->bqkrd", p, v))
-    return torch.cat(outs, dim=1).reshape(B, Sq, H, v.shape[-1])
+    q[0] relative to k[0]. The non-causal use (the encoder and cross
+    attention) differentiates through ``_ChunkedAttend``, whose backward
+    recomputes one chunk at a time; the causal one (MLA) through autograd,
+    which keeps every chunk's scores."""
+    if not causal and torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad):
+        return _ChunkedAttend.apply(q, k, v, causal, window, q_offset)
+    return _attend_loop(q, k, v, causal, window, q_offset)
 
 
 def attn_forward(p, cfg, x, positions, *, window, use_rope=True,
@@ -119,8 +176,10 @@ def attn_forward(p, cfg, x, positions, *, window, use_rope=True,
     CUDA kernel on the card); otherwise the chunked reference path runs.
     The enc-dec decoder has no RoPE (``use_rope=False``). The head counts
     are the weights' (H = wq's columns / hd): a tensor-parallel rank holds
-    H/M query and K/M KV heads, its input goes through ``tp.copy_in`` and
-    its ``wo`` partial sum through ``tp.reduce_out``."""
+    its query and KV heads, its input goes through ``tp.copy_in`` and
+    its ``wo`` partial sum through ``tp.reduce_out``. Under the head plan's
+    KV groups (``launch.shardings``) the weights hold 1–⌈rep/m⌉ query
+    heads and one KV head, which is H < num_heads too, even and uneven."""
     B, S, _ = x.shape
     hd = cfg.head_dim
     H, K = p["wq"].shape[1] // hd, p["wk"].shape[1] // hd
@@ -233,17 +292,29 @@ def cross_attn_decode(p, cfg, x, ck, cv):
     return _mm(o.reshape(B, 1, H * hd), p["wo"])
 
 
-def cross_attn_forward(p, cfg, x, enc_kv):
+def cross_attn_forward(p, cfg, x, enc_kv, tp=None):
     """Cross attention (whisper decoder): queries from x (B, S, d), keys
-    and values from the encoder output (B, Se, d); non-causal, no RoPE."""
+    and values from the encoder output (B, Se, d); non-causal, no RoPE.
+    With ``enc_kv is x`` it is the whisper encoder's self-attention. The
+    head counts are the weights' (as in ``attn_forward``): a
+    tensor-parallel rank's inputs go through ``tp.copy_in`` (once where
+    they are one tensor) and its ``wo`` partial sum through
+    ``tp.reduce_out``."""
     B, S, _ = x.shape
-    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    H, K = p["wq"].shape[1] // hd, p["wk"].shape[1] // hd
+    split = tp is not None and H < cfg.num_heads
+    if split:
+        same = enc_kv is x
+        x = tp.copy_in(x)
+        enc_kv = x if same else tp.copy_in(enc_kv)
     Se = enc_kv.shape[1]
     q = (x @ p["wq"]).reshape(B, S, H, hd)
     k = (enc_kv @ p["wk"]).reshape(B, Se, K, hd)
     v = (enc_kv @ p["wv"]).reshape(B, Se, K, hd)
     o = _attend_chunked(q, k, v, causal=False, window=None)
-    return o.reshape(B, S, H * hd) @ p["wo"]
+    out = o.reshape(B, S, H * hd) @ p["wo"]
+    return tp.reduce_out(out) if split else out
 
 
 # ---------------------------------------------------------------------------

@@ -31,12 +31,14 @@ in the recomputation. MLA, cross attention and the encoder run the plain
 ``_attend_chunked`` in either mode, as in the JAX package.
 
 Under the hybrid engine's tensor-parallel split
-(``repro_torch.distributed.data_parallel``) a dense attention layer holds
-its rank's heads (``wq``/``wk``/``wv`` by columns, ``wo`` by rows) and a
-SwiGLU or GELU MLP its rank's ``d_ff`` slice; the layers read the local
-widths off the weights and the split (``sharding.current_tp()``, read once
-a forward and handed down, so a recomputed layer sees it too) adds the
-row-parallel partial sums over the model ranks. ``constrain`` marks the
+(``repro_torch.distributed.data_parallel``) an attention layer (self or
+cross, decoder or whisper encoder) holds its rank's heads
+(``wq``/``wk``/``wv`` by columns, ``wo`` by rows; the head plan of
+``launch.shardings``) and a SwiGLU or GELU MLP its rank's ``d_ff`` slice;
+the layers read the local widths off the weights and the split
+(``sharding.current_tp()``, read once a forward and handed down, so a
+recomputed layer sees it too) adds the row-parallel partial sums over the
+model ranks. ``constrain`` marks the
 reference's activation points: "hidden" after the embedding and after each
 layer, "logits" after the head, "decode_hidden" in a decode step.
 
@@ -317,7 +319,7 @@ def apply_layer(layer: Layer, cfg, x, positions, enc_out=None,
     x = x + o
     if spec.cross:
         hx = L.rms_norm(x, layer.ln_x, cfg.norm_eps)
-        x = x + L.cross_attn_forward(layer.cross, cfg, hx, enc_out)
+        x = x + L.cross_attn_forward(layer.cross, cfg, hx, enc_out, tp)
         if want_cache:
             cache = cache + L.cross_kv(layer.cross, cfg, enc_out)
     aux = 0.0
@@ -358,21 +360,18 @@ def apply_layer_decode(layer: Layer, cfg, x, cache, t):
     return x + y, new, aux
 
 
-def encoder_forward(model: Transformer, frames):
+def encoder_forward(model: Transformer, frames, tp=None):
     """Whisper encoder. frames: (B, Se, d) stub embeddings -> (B, Se, d);
-    ``enc_pos`` added, non-causal plain attention without RoPE, GELU MLPs."""
+    ``enc_pos`` added, non-causal plain attention without RoPE (the
+    self-attention form of ``cross_attn_forward``), GELU MLPs. ``tp``:
+    the tensor-parallel split, by heads and ``d_ff`` as in the decoder
+    (module doc)."""
     cfg = model.cfg
     x = frames + model.enc_pos[None, :frames.shape[1]]
-    B, Se, _ = x.shape
-    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     for lp in model.encoder:
         h = L.rms_norm(x, lp.ln1, cfg.norm_eps)
-        q = (h @ lp.mixer["wq"]).reshape(B, Se, H, hd)
-        k = (h @ lp.mixer["wk"]).reshape(B, Se, K, hd)
-        v = (h @ lp.mixer["wv"]).reshape(B, Se, K, hd)
-        o = L._attend_chunked(q, k, v, causal=False, window=None)
-        x = x + o.reshape(B, Se, H * hd) @ lp.mixer["wo"]
-        y, _ = _apply_mlp(lp, cfg, L.rms_norm(x, lp.ln2, cfg.norm_eps))
+        x = x + L.cross_attn_forward(lp.mixer, cfg, h, h, tp)
+        y, _ = _apply_mlp(lp, cfg, L.rms_norm(x, lp.ln2, cfg.norm_eps), tp=tp)
         x = x + y
     return L.rms_norm(x, model.enc_final_norm, cfg.norm_eps)
 
@@ -390,31 +389,63 @@ def _embed(model: Transformer, tokens, frontend_embeds=None):
     return constrain(x, "hidden")
 
 
+def _shard(tp, x):
+    return x if tp is None else tp.shard(x)
+
+
+def _unshard(tp, x):
+    return x if tp is None else tp.unshard(x)
+
+
+def _apply_layer_sharded(layer: Layer, cfg, xs, positions, enc_out,
+                         use_kernels, tp):
+    """``apply_layer`` from and to the rank's slice of the hidden stream
+    (``tp.unshard``, ``tp.shard``; the whole stream where there is no
+    split): what a checkpointed layer saves is its input's slice."""
+    x, aux = apply_layer(layer, cfg, _unshard(tp, xs), positions, enc_out,
+                         use_kernels, False, tp)
+    return _shard(tp, x), aux
+
+
 def forward(model: Transformer, tokens, frontend_embeds=None, *, remat=True,
             use_kernels=False, want_cache=False):
     """tokens (B, S) -> (final hidden (B, S, d), aux summed over layers),
     or with ``want_cache`` (hidden, (prefix_caches, block_caches), aux) in
-    the reference's stacking (``stack_caches``)."""
+    the reference's stacking (``stack_caches``).
+
+    Under a tensor-parallel split a checkpointed stack carries the hidden
+    stream between its layers as the rank's 1/M of d, as the reference's
+    "hidden" rule places it (``(batch, seq, "model")``): each layer
+    gathers its input's slices in rank order, exactly, and hands on its
+    output's slice (``TensorParallel.shard``), so the checkpoints hold 1/M
+    of the stream where they held it whole on every model rank. The bits
+    are the whole stream's: every model rank computes the same values."""
     cfg = model.cfg
     tp = current_tp()
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
     enc_out = None
     if cfg.family == "encdec":
-        enc_out = encoder_forward(model, frontend_embeds)
+        enc_out = encoder_forward(model, frontend_embeds, tp)
     x = _embed(model, tokens, frontend_embeds)
+    remat = remat and torch.is_grad_enabled() and not want_cache
+    if remat:
+        x = _shard(tp, x)
     aux_total, caches = 0.0, []
     for layer in model.layers:
         if want_cache:
             x, cache, aux = apply_layer(layer, cfg, x, positions, enc_out,
                                         use_kernels, want_cache=True, tp=tp)
             caches.append(cache)
-        elif remat and torch.is_grad_enabled():
-            x, aux = checkpoint(apply_layer, layer, cfg, x, positions, enc_out,
-                                use_kernels, False, tp, use_reentrant=False)
+        elif remat:
+            x, aux = checkpoint(_apply_layer_sharded, layer, cfg, x,
+                                positions, enc_out, use_kernels, tp,
+                                use_reentrant=False)
         else:
             x, aux = apply_layer(layer, cfg, x, positions, enc_out,
                                  use_kernels, tp=tp)
         aux_total = aux_total + aux
+    if remat:
+        x = _unshard(tp, x)
     h = L.rms_norm(x, model.final_norm, cfg.norm_eps)
     if want_cache:
         return h, stack_caches(cfg, caches), aux_total

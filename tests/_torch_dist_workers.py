@@ -626,3 +626,108 @@ def hybrid_suite_rank(rank, world, tiny_path, wide_path):
                                         True),
             "fused": tp_fused_rank(rank, world, 2, 8, 4),
             "slices": tp_slices_rank(rank, world, 2, 1)}
+
+
+TP_ATTENTION = {"even": dict(d_model=128, head_dim=32, num_heads=4,
+                             num_kv_heads=2, d_ff=256),
+                "uneven": dict(d_model=128, head_dim=32, num_heads=6,
+                               num_kv_heads=2, d_ff=256)}
+
+
+def tp_attention_config(kind: str):
+    """The configs of ``tests/test_torch_tp_attention.py``: the tiny
+    transformer widened (``TP_ATTENTION``: H 4 or 6 over K 2) or
+    whisper's reduced config (``whisper``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, zoo_config
+    if kind == "whisper":
+        return get_config("whisper_medium").reduced()
+    return dataclasses.replace(zoo_config("transformer", "tiny"),
+                               **TP_ATTENTION[kind])
+
+
+def tp_attention_batches(cfg, steps: int) -> list:
+    """The global batches of the tensor-parallel attention legs: 4 rows of
+    32 tokens from the FCPR sampler, and for an enc-dec config seeded
+    frames (4, encoder_seq, d), the same numpy arrays on every side."""
+    sampler = FCPRSampler(make_lm_tokens(0, 16, 32, cfg.vocab_size),
+                          batch_size=4, seed=1)
+    rng = np.random.RandomState(3)
+    out = []
+    for j in range(steps):
+        b = dict(sampler(j))
+        if cfg.family == "encdec":
+            b["frontend_embeds"] = rng.randn(
+                4, cfg.encoder_seq, cfg.d_model).astype(np.float32)
+        out.append(b)
+    return out
+
+
+def tp_attention_rank(rank, world, state_dict_path, kind, model, steps,
+                      lr):
+    """``tp_attention_config(kind)`` (f32, plain paths) through the hybrid
+    engine on the ``(world/model, model)`` mesh from the params in
+    ``state_dict_path`` -> (losses, limits, accelerated, the whole final
+    state dict, {leaf name: (compute shape, local shape, narrow)} of the
+    split attention leaves, the bytes the KV-group and model-axis
+    exchanges moved, and whether the whole params and velocity come back
+    to the same local shards through ``load_full`` and
+    ``load_full_tree``, as a checkpoint's restore takes them)."""
+    from repro_torch.distributed import make_hybrid_step
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.shardings import hybrid_params_placement
+    from repro_torch.models import build_model
+    cfg = tp_attention_config(kind)
+    m = build_model(cfg, kernels="reference", param_dtype=torch.float32,
+                    device="cpu")
+    m.init(0, max_seq=32)
+    with np.load(state_dict_path) as f:
+        m.module.load_state_dict({k: torch.from_numpy(f[k]) for k in f.files})
+    names = [n for n, _ in m.module.named_parameters()]
+    mesh = make_host_mesh(model=model, device="cpu")
+    local, pl = hybrid_params_placement(mesh, m.module)
+    icfg = ISGDConfig(n_batches=4, k_sigma=1.0, stop=2)
+    init, step = make_hybrid_step(m.loss_fn, momentum(0.9), icfg, mesh,
+                                  lr_fn=constant_lr(lr))
+    state = init(local)
+    losses, limits, accel = [], [], []
+    for b in tp_attention_batches(cfg, steps):
+        batch = {k: torch.from_numpy(v) for k, v in b.items()}
+        state, local, met = step(state, local, batch)
+        losses.append(float(met["loss"]))
+        limits.append(float(met["limit"]))
+        accel.append(bool(met["accelerated"]))
+    full = dict(zip(names, (_np(t) for t in pl.full())))
+    split = {lf.name: (tuple(lf.compute.shape), tuple(lf.local.shape),
+                       lf.narrow)
+             for lf in pl.leaves if lf.tp_dim is not None
+             and lf.name.rsplit(".", 1)[-1] in ("wq", "wk", "wv", "wo")}
+    moved = init.strategy.tp.moved
+    back = [torch.full_like(t, float("nan")) for t in local]
+    pl.load_full(pl.full(), back)
+    base = [torch.full_like(t, float("nan")) for t in state.base]
+    pl.load_full_tree(pl.full_tree(state.base), base)
+    restored = all(torch.equal(a, b) for a, b in zip(back + base,
+                                                     local + state.base))
+    return losses, limits, accel, full, split, moved, restored
+
+
+AXIS_SUM_SHAPES = [(5, 3), (7,), (2, 3, 4)]
+
+
+def axis_sum_rank(rank, world, seed):
+    """``core.reduce.axis_sum`` over the group of this rank's draws, f32
+    and bf16, at ``AXIS_SUM_SHAPES`` (sizes 15, 7 and 24: none divides 2,
+    3 and 4 all) -> [(every rank's input, the sum), ...] as numpy f32."""
+    from repro_torch.core.reduce import axis_sum
+    rng = np.random.RandomState(seed)
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in AXIS_SUM_SHAPES:
+            xs = [torch.from_numpy(rng.randn(*shape).astype(np.float32) * 10)
+                  .to(dtype) for _ in range(world)]
+            got = axis_sum(xs[rank], None)
+            assert got.dtype == dtype and got.shape == xs[rank].shape
+            out.append(([_np(x) for x in xs], _np(got)))
+    return out

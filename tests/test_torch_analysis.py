@@ -416,9 +416,14 @@ def test_reduced_arch_under_production_mesh(multi_pod, fake_world):
     are its local shards (each parameter cut as its spec says) of params,
     of the momentum and Alg. 2 state, and the batch it is handed; its
     collectives are one reduce-scatter an evaluation over the flat data
-    group (the data mean) and all-gathers: of the means over the flat
-    data group, of the parameters over the data axis and the model group,
-    and on the 512-rank mesh of the slice means over the pod ranks."""
+    group (the data mean), two a split MLP layer an evaluation over the
+    model group (the model-axis sums, ``axis_sum``: the output's in the
+    forward and the input gradient's in the backward; the recomputation
+    stops before the output's sum), and all-gathers: of the means over
+    the flat data group, of the parameters over the data axis and the
+    model group, of the sums and the hidden stream's slices over the
+    model group, and on the 512-rank mesh of the slice means over the pod
+    ranks."""
     from repro_torch.launch.shardings import hybrid_params_placement
     from repro_torch.sharding import rules
     mesh = make_production_mesh(multi_pod)
@@ -446,9 +451,10 @@ def test_reduced_arch_under_production_mesh(multi_pod, fake_world):
     assert {r.kind for r in c.collectives} == {"all-gather", "reduce-scatter"}
     assert set(groups) == {flat_data, data_axis, model_g} | (
         {pod_g} if multi_pod else set())
-    scatters = [r for r in c.collectives if r.kind == "reduce-scatter"]
-    assert len(scatters) == 1 + 5                  # one an evaluation
-    assert {r.ranks for r in scatters} == {flat_data}
+    scatters = collections.Counter(r.ranks for r in c.collectives
+                                   if r.kind == "reduce-scatter")
+    assert scatters == {flat_data: 1 + 5,           # one an evaluation
+                        model_g: 2 * cfg.num_layers * (1 + 5)}
     assert c.launches == {"flash_attention": 2 * 2 * (1 + 5),
                           "fused_xent": 1 + 5}
 
