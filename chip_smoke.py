@@ -80,9 +80,15 @@ the head plan's KV groups: ``starcoder2_3b`` at full width cut to two
 layers, on four gloo ranks on ``(data=1, model=4)`` (6 query heads
 against one KV head a rank, KV groups of two ranks) beside a
 single-device run of the same config, and rank 0's step-1 gradient of
-every attention leaf within 5 % of that run's (``--tp-only`` runs the
-device line, the build, the kernel checks at ``hybrid_gqa``'s shapes,
-``train``, ``hybrid`` and ``hybrid_gqa``);
+every attention leaf within 5 % of that run's; ``hybrid_moe`` makes them
+on the MoE split: ``paper-moe`` at full width cut to four layers (two
+MoE), four gloo ranks on ``(1, 4)`` (expert parallel, 2 experts a rank)
+and three on ``(1, 3)`` (within each expert, 512 of ``moe_d_ff`` a
+rank), each rank's MoE compute shapes, and rank 0's step-1 gradient of
+the routers and experts within 5 % of a single-device run's
+(``--tp-only`` runs the device line, the build, the kernel checks at
+``hybrid_gqa``'s and ``hybrid_moe``'s shapes, ``train``, ``hybrid``,
+``hybrid_gqa`` and ``hybrid_moe``);
 ``hybrid_parity``, ``multihost_parity``
 and ``zoo_parity`` run the three harnesses on the card (gloo ranks, and
 one NCCL rank for the fused legs; the zoo's kernel leg is ``--kernels
@@ -124,9 +130,8 @@ phases. ``analysis`` holds the analysis tier's meta-device count of one
 (FLOPs, launches, device time against the roofline's compute time, peak
 memory); ``--analysis-only`` runs the device line, the build, ``train``
 and ``analysis``. The phases that run only child processes (``resume``,
-``dp``, ``dp2``, ``hybrid``, ``hybrid_gqa``, the parity harnesses but
-``async_parity``,
-and ``async_resume``) run four at a time, after ``sched``, ``async_ps``
+``dp``, ``dp2``, ``hybrid``, ``hybrid_gqa``, ``hybrid_moe``, the parity
+harnesses but ``async_parity``, and ``async_resume``) run four at a time, after ``sched``, ``async_ps``
 and ``async_ps2`` and before ``async_faults`` (``child_phases``); every
 other phase runs alone on the card. Each phase prints one JSON line, with ``at_s``, the
 seconds since its process started; the last two lines are the kernels
@@ -549,6 +554,7 @@ def phase_checks() -> dict:
         for B, S, H, K, hd, causal, window in ATTN_EDGES:
             check_attn((B, S, H, K, hd), dtype, causal=causal, window=window)
         check_gqa_shapes(dtype)
+        check_moe_shapes(dtype)
         main["ssd_scan"] = check_ssd(SSD_MAIN, dtype, timed=True,
                                      dt_shift=DT_INIT)
         for shape in SSD_SHAPES:
@@ -570,6 +576,15 @@ def check_gqa_shapes(dtype) -> None:
     for shape in GQA_ATTN:
         check_attn(shape, dtype)
     check_xent(GQA_XENT, dtype, tied=True)
+
+
+def check_moe_shapes(dtype) -> None:
+    """``hybrid_moe``'s own kernel shape: ``flash_attention`` on a
+    ``(1, 4)`` rank's 3 query heads over one KV head (``paper-moe``, batch
+    8 × seq 1024) against the plain version. The ``(1, 3)`` ranks and the
+    single-device run attend at ``paper-moe``'s own shape
+    (``numerics.ATTN_EDGES``), the head at ``XENT_MAIN``'s."""
+    check_attn(MOE_ATTN, dtype)
 
 
 def phase_train(model: str) -> dict:
@@ -1535,7 +1550,8 @@ def launch_child(out: str, spec: dict, argv: list):
     (``device_counted``, a fused run); ``replicas`` checksums every rank's
     replica after each step (``ReplicaCheck``, kept out of the walls and
     the peak); ``first_grads``, a path, saves there the whole velocity of
-    the attention leaves after step 1 (``FirstVelocity``; inside
+    the attention leaves after step 1, or of the leaves the regular
+    expression ``first_grads_leaves`` matches (``FirstVelocity``; inside
     ``ReplicaCheck`` where there is one); ``probe`` records the head of every reduction's segments
     and means (``probe_reductions``, a per-step run); ``final_sum`` the
     device checksum
@@ -1560,7 +1576,8 @@ def launch_child(out: str, spec: dict, argv: list):
             resolve(a), num_layers=spec["layers"])
     first = None
     if spec.get("first_grads"):
-        first = FirstVelocity(spec["first_grads"])
+        first = FirstVelocity(spec["first_grads"],
+                              spec.get("first_grads_leaves", ATTN_LEAF.pattern))
         build = launcher.build_model
 
         def capture(*a, **kw):               # the leaves' names
@@ -1587,6 +1604,8 @@ def launch_child(out: str, spec: dict, argv: list):
         hd = res["model"].cfg.head_dim
         attn = [lf for lf in pl.leaves
                 if lf.name in ("layers.0.mixer.wq", "layers.0.mixer.wk")]
+        moe = next((lf.name[:-len("router")] for lf in pl.leaves
+                    if lf.name.endswith(".mlp.router")), None)
         tp = {"bytes": res["tp_bytes"],
               "whole_params": replica_agreement_of(
                   replica_checksum(whole), whole[0].device),
@@ -1597,7 +1616,12 @@ def launch_child(out: str, spec: dict, argv: list):
               "attn_local_heads": {lf.name.rsplit(".", 1)[-1]:
                                    lf.compute.shape[1] // hd for lf in attn},
               "attn_storage_cols": {lf.name.rsplit(".", 1)[-1]:
-                                    lf.local.shape[1] for lf in attn}}
+                                    lf.local.shape[1] for lf in attn},
+              # the first MoE layer's [compute shape, storage shape]
+              "moe_shapes": {lf.name.rsplit(".", 1)[-1]:
+                             [list(lf.compute.shape), list(lf.local.shape)]
+                             for lf in pl.leaves
+                             if moe is not None and lf.name.startswith(moe)}}
         del whole
     with open(out, "w") as fh:
         json.dump({"rank": process_index(), "ranks": res["ranks"],
@@ -1819,15 +1843,16 @@ ATTN_LEAF = re.compile(r"layers\.\d+\.mixer\.w[qkvo]")
 
 class FirstVelocity:
     """``on_step`` that saves to ``out``, after step 1, the whole velocity
-    of every attention leaf (``ATTN_LEAF``), f32, by name. The momentum
+    of every leaf whose name ``leaves`` matches (a regular expression;
+    default the attention leaves, ``ATTN_LEAF``), f32, by name. The momentum
     rule's velocity starts at zero, so after one step it is −lr × the
     step's gradient (the data mean's), taken before any decision of ISGD
     can differ. A tensor-parallel run gathers those leaves
     (``Placement.full``, every rank taking part) and its rank 0 saves
     them. ``model``: the launcher's model (its leaves' names)."""
 
-    def __init__(self, out: str):
-        self.out, self.model = out, None
+    def __init__(self, out: str, leaves: str = ATTN_LEAF.pattern):
+        self.out, self.model, self.leaves = out, None, re.compile(leaves)
 
     def __call__(self, j: int, carry):
         import copy
@@ -1840,11 +1865,13 @@ class FirstVelocity:
         pl = getattr(carry[1][0], "_repro_placement", None)
         if pl is None:
             names = [n for n, _ in self.model.module.named_parameters()]
-            keep = [i for i, n in enumerate(names) if ATTN_LEAF.fullmatch(n)]
+            keep = [i for i, n in enumerate(names)
+                    if self.leaves.fullmatch(n)]
             whole = [vel[i] for i in keep]
         else:
             names = [lf.name for lf in pl.leaves]
-            keep = [i for i, n in enumerate(names) if ATTN_LEAF.fullmatch(n)]
+            keep = [i for i, n in enumerate(names)
+                    if self.leaves.fullmatch(n)]
             sub = copy.copy(pl)
             sub.leaves = [pl.leaves[i] for i in keep]
             whole = sub.full([vel[i] for i in keep])
@@ -1854,10 +1881,10 @@ class FirstVelocity:
 
 
 def first_grads_against(path: str, ref_path: str) -> dict:
-    """Two runs' step-1 velocities (``FirstVelocity``) leaf by leaf: the
-    largest over the leaves of ‖v − v_ref‖ / ‖v_ref‖ (``rel``) and of
-    max|v − v_ref| / max|v_ref| (``max_rel``), f64, and the leaf of the
-    largest ``rel``."""
+    """Two runs' step-1 velocities (``FirstVelocity``) leaf by leaf:
+    ‖v − v_ref‖ / ‖v_ref‖ of each leaf (``rel_by_leaf``), the largest of
+    them (``rel``) and its leaf, and the largest max|v − v_ref| /
+    max|v_ref| (``max_rel``), f64."""
     v, ref = torch.load(path), torch.load(ref_path)
     if sorted(v) != sorted(ref) or not ref:
         raise SystemExit(f"step-1 velocities of different leaves: "
@@ -1869,7 +1896,7 @@ def first_grads_against(path: str, ref_path: str) -> dict:
         max_rel[name] = float(d.abs().max() / r.double().abs().max())
     worst = max(rel, key=rel.get)
     return {"leaves": len(ref), "rel": rel[worst], "worst_leaf": worst,
-            "max_rel": max(max_rel.values())}
+            "max_rel": max(max_rel.values()), "rel_by_leaf": rel}
 
 
 PROBE_HEAD = 4                   # elements of each segment a probe records
@@ -2230,6 +2257,7 @@ def tp_rank_report(g: dict, s_psi: list, s_accel: list, clear: list,
         launches_per_eval={k: launches[k] / evals for k in DP_KERNELS},
         attn_local_heads=g["tp"]["attn_local_heads"],
         attn_storage_cols=g["tp"]["attn_storage_cols"],
+        moe_shapes=g["tp"]["moe_shapes"],
         params_held=g["tp"]["held"], params_total=g["params"],
         split_leaves=g["tp"]["split"], gathered_leaves=g["tp"]["gathered"],
         peak_mem_gib=g["peak_bytes"] / 2**30,
@@ -2289,54 +2317,178 @@ def phase_hybrid_gqa() -> dict:
     import tempfile
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.numerics import TOLERANCES
     t0 = time.perf_counter()
-    rtol, atol = TOLERANCES["fused_xent"]["bfloat16"]
     argv = gqa_args(HYBRID_STEPS)
     spec = {"layers": GQA_LAYERS}
-    tp_argv = argv + [
-        "--engine", "hybrid", "--model-parallel", str(GQA_MODEL),
-        "--dist-backend", "gloo", "--coordinator",
-        f"127.0.0.1:{free_port()}", "--num-processes", str(GQA_MODEL)]
     with tempfile.TemporaryDirectory(prefix="hybrid_gqa_", dir=ROOT) as d:
         grads = [os.path.join(d, "grads_tp.pt"), os.path.join(d, "grads.pt")]
         *ranks, single = run_children(
-            [tp_argv + ["--process-id", str(r)] for r in range(GQA_MODEL)]
-            + [argv],
+            tp_argvs(argv, GQA_MODEL) + [argv],
             [os.path.join(d, f"rank{r}.json") for r in range(GQA_MODEL)]
             + [os.path.join(d, "single.json")],
             [dict(spec, counted=True, replicas=True, tp=True,
                   first_grads=grads[0])] * GQA_MODEL
             + [dict(spec, first_grads=grads[1])])
         step1 = first_grads_against(*grads)
+    cfg = dataclasses.replace(get_config(GQA_ARCH), num_layers=GQA_LAYERS)
+    leg, ok = tp_against_single(ranks, single, launches_per_eval(cfg),
+                                {"wq": 6, "wk": 1})
+    out = dict(config=cfg.name, layers=GQA_LAYERS,
+               heads=[cfg.num_heads, cfg.num_kv_heads, cfg.head_dim],
+               mesh={"data": 1, "model": GQA_MODEL}, backend="gloo",
+               steps=HYBRID_STEPS, global_batch=8, **leg,
+               step1_attn_grads=dict(step1, bound=GQA_GRAD_RTOL,
+                                     within=step1["rel"] <= GQA_GRAD_RTOL),
+               seconds=time.perf_counter() - t0)
+    emit("hybrid_gqa", **out)
+    if not (ok and out["step1_attn_grads"]["within"]):
+        raise SystemExit("hybrid_gqa: the four tensor-parallel ranks failed "
+                         "a check (above)")
+    return {k: ranks[0]["device_launches"][k] for k in DP_KERNELS}
+
+
+def tp_argvs(argv: list, model: int) -> list:
+    """``argv`` for each of ``model`` gloo ranks sharing the card on
+    ``(data=1, model=model)`` (``--engine hybrid``), in rank order, with
+    a coordinator port of their own (``free_port``)."""
+    port = free_port()
+    return [argv + ["--engine", "hybrid", "--model-parallel", str(model),
+                    "--dist-backend", "gloo", "--coordinator",
+                    f"127.0.0.1:{port}", "--num-processes", str(model),
+                    "--process-id", str(r)] for r in range(model)]
+
+
+def tp_against_single(ranks: list, single: dict, per_eval: dict,
+                      heads: dict) -> tuple:
+    """Tensor-parallel ranks' child results against a single-device run
+    of the same config, seed and batches (``hybrid_gqa``, ``hybrid_moe``)
+    -> (their fields, whether every check passed): ``tp_rank_report``
+    with ψ held within the bf16 ``fused_xent`` tolerance of the single
+    run's and decisions where its ψ is clear of its limit, layer 0's
+    compute heads ``heads``, the ranks' logs equal bit for bit."""
+    from repro_torch.kernels.numerics import TOLERANCES
+    rtol, atol = TOLERANCES["fused_xent"]["bfloat16"]
     s_psi, s_lim = single["losses"], single["limits"]
     tol = [atol + rtol * abs(x) for x in s_psi]
     clear = [not math.isfinite(lim) or abs(p - lim) > t
              for p, lim, t in zip(s_psi, s_lim, tol)]
-    cfg = dataclasses.replace(get_config(GQA_ARCH), num_layers=GQA_LAYERS)
-    per_eval = launches_per_eval(cfg)
-    out = dict(config=cfg.name, layers=GQA_LAYERS,
-               heads=[cfg.num_heads, cfg.num_kv_heads, cfg.head_dim],
-               mesh={"data": 1, "model": GQA_MODEL}, backend="gloo",
-               steps=HYBRID_STEPS, global_batch=8, single_device_losses=s_psi,
+    out = dict(single_device_losses=s_psi,
                single_device_accelerated=single["accelerated"],
-               tolerance=[rtol, atol], clear_of_limit=clear,
-               step1_attn_grads=dict(step1, bound=GQA_GRAD_RTOL,
-                                     within=step1["rel"] <= GQA_GRAD_RTOL))
+               tolerance=[rtol, atol], clear_of_limit=clear)
     ok = True
     for g in ranks:
         rank, good = tp_rank_report(g, s_psi, single["accelerated"], clear,
                                     tol, per_eval)
         out[f"rank{g['rank']}"] = rank
-        ok &= good and rank["attn_local_heads"] == {"wq": 6, "wk": 1}
-    same_logs = all(r[k] == ranks[0][k] for r in ranks for k in DP_KEYS)
-    out.update(logs_equal_across_ranks=same_logs,
-               seconds=time.perf_counter() - t0)
-    emit("hybrid_gqa", **out)
-    if not (ok and same_logs and out["step1_attn_grads"]["within"]):
-        raise SystemExit("hybrid_gqa: the four tensor-parallel ranks failed "
-                         "a check (above)")
-    return {k: ranks[0]["device_launches"][k] for k in DP_KERNELS}
+        ok &= good and rank["attn_local_heads"] == heads
+    same = all(r[k] == ranks[0][k] for r in ranks for k in DP_KEYS)
+    out["logs_equal_across_ranks"] = same
+    return out, ok and same
+
+
+MOE_LAYERS = 4                             # hybrid_moe: paper-moe's first 4, 2 MoE
+# At initialisation a bf16 run's step-1 MoE gradients sit 0.07–0.20 of
+# their norm from an f32 run's, split or not (routing flips and capacity
+# drops; CPU, paper-moe at 4 × 128 tokens), so ``hybrid_moe`` holds the
+# split's distance to an f32 single-device run within GQA_GRAD_RTOL of the
+# bf16 single-device run's; the gates without ``copy_in`` read 0.67 in f32.
+# hybrid_moe's legs: model ranks -> (mode, layer 0's compute heads a rank)
+MOE_LEGS = {4: ("experts", {"wq": 3, "wk": 1}),
+            3: ("within", {"wq": 12, "wk": 4})}
+MOE_ATTN = (8, 1024, 3, 1, 64)             # a (1, 4) rank's flash_attention
+
+
+def moe_rank_shapes(cfg, model: int) -> dict:
+    """A rank's [compute shape, storage shape] of each MoE leaf on
+    ``(data=1, model)``: E/M whole experts where M divides E (the router's
+    storage its E/M columns), else every expert's ``moe_d_ff``/M columns
+    (rows of ``wo``); the router computed whole."""
+    d, E, ff = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    if E % model == 0:
+        e, f, r = E // model, ff, E // model
+    else:
+        e, f, r = E, ff // model, E
+    return {"router": [[d, E], [d, r]], "wg": [[e, d, f]] * 2,
+            "wi": [[e, d, f]] * 2, "wo": [[e, f, d]] * 2}
+
+
+def phase_hybrid_moe() -> dict:
+    """The MoE split on the card: ``paper-moe`` base at full width (d 768,
+    12 query and 4 KV heads of 64, top-2 of 8 experts, ``moe_d_ff`` 1536,
+    vocab 32768) cut to MOE_LAYERS layers (two MoE layers), bf16 through
+    ``--kernels cuda``, HYBRID_STEPS per-step steps, on gloo ranks sharing
+    the card: four on ``(1, 4)``, expert parallel (2 experts a rank; 3
+    query heads on one KV head), then three on ``(1, 3)``, within each
+    expert (512 of every expert's ``moe_d_ff`` a rank; attention whole:
+    3 does not divide the 4 KV heads), beside single-device runs of the
+    same config, seed and batches in bf16 and in f32. ``hybrid_gqa``'s
+    checks against the bf16 run (``tp_against_single``: ψ, decisions,
+    logs, replicated tensors and whole params alike, device-counted
+    launches), each rank's MoE compute and storage shapes
+    (``moe_rank_shapes``), and rank 0's step-1 velocity of every MoE
+    layer's router and experts, gathered whole: leaf by leaf its distance
+    to the f32 run's within GQA_GRAD_RTOL of the bf16 single-device run's
+    (the bf16 floor, above MOE_LAYERS). The router's gradient is whole
+    only if the gates' gradient was summed over the model ranks. -> each
+    leg's rank-0 device launches, by mode. A correctness check, not a
+    speed figure (gloo stages every collective through the host)."""
+    import dataclasses
+    import tempfile
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(zoo_base("moe"), num_layers=MOE_LAYERS)
+    moe = [str(i) for i in range(MOE_LAYERS) if cfg._is_moe_layer(i)]
+    leaves = rf"layers\.({'|'.join(moe)})\.mlp\.(router|wg|wi|wo)"
+    argv = train_args("moe", HYBRID_STEPS)
+    exact_argv = [("f32" if a == "bf16" else a) for a in argv]
+    spec = {"layers": MOE_LAYERS, "first_grads_leaves": leaves}
+    per_eval = launches_per_eval(cfg)
+    out = dict(config=cfg.name, layers=MOE_LAYERS, moe_layers=moe,
+               experts=[cfg.num_experts, cfg.top_k, cfg.moe_d_ff],
+               backend="gloo", steps=HYBRID_STEPS, global_batch=8)
+    ok, launches, single = True, {}, None
+    with tempfile.TemporaryDirectory(prefix="hybrid_moe_", dir=ROOT) as d:
+        ref, exact = os.path.join(d, "grads.pt"), os.path.join(d, "f32.pt")
+        for M, (mode, heads) in MOE_LEGS.items():
+            grads = os.path.join(d, f"grads_{mode}.pt")
+            first = single is None          # the single runs beside leg 1
+            runs = run_children(
+                tp_argvs(argv, M) + ([argv, exact_argv] if first else []),
+                [os.path.join(d, f"{mode}{r}.json") for r in range(M)]
+                + ([os.path.join(d, f"single{k}.json") for k in (16, 32)]
+                   if first else []),
+                [dict(spec, counted=True, replicas=True, tp=True,
+                      first_grads=grads)] * M
+                + ([dict(spec, first_grads=ref),
+                    dict(spec, first_grads=exact)] if first else []))
+            if first:
+                *runs, single, _ = runs
+                floor = first_grads_against(ref, exact)
+                out["step1_bf16_single_against_f32"] = floor
+            leg, good = tp_against_single(runs, single, per_eval, heads)
+            want = moe_rank_shapes(cfg, M)
+            shapes = all(leg[f"rank{r}"]["moe_shapes"] == want
+                         for r in range(M))
+            step1 = first_grads_against(grads, exact)
+            excess = max(step1["rel_by_leaf"][n] - r
+                         for n, r in floor["rel_by_leaf"].items())
+            within = excess <= GQA_GRAD_RTOL
+            out[mode] = dict(mesh={"data": 1, "model": M}, **leg,
+                             moe_shapes_expected=want, moe_shapes_ok=shapes,
+                             step1_moe_grads=dict(
+                                 step1, bound=GQA_GRAD_RTOL,
+                                 excess_over_bf16_single=excess,
+                                 within=within,
+                                 against_bf16_single=first_grads_against(
+                                     grads, ref)["rel"]))
+            ok &= good and shapes and within
+            launches[mode] = {k: runs[0]["device_launches"][k]
+                              for k in DP_KERNELS}
+    out["seconds"] = time.perf_counter() - t0
+    emit("hybrid_moe", **out)
+    if not ok:
+        raise SystemExit("hybrid_moe: the tensor-parallel ranks failed a "
+                         "check (above)")
+    return launches
 
 
 def start_harness(module: str, args: list) -> dict:
@@ -3519,8 +3671,9 @@ CHILD_JOBS = 4                             # child phases at a time (card memory
 def child_phases(sched_ref: dict, async_ref: dict, per_step: dict,
                  chunked: dict) -> dict:
     """The phases whose runs are child processes of the launcher or of a
-    harness (``hybrid_gqa``, ``resume``, ``async_resume``, ``dp``,
-    ``dp2``, ``hybrid`` and the parity legs), each in a thread of its own,
+    harness (``hybrid_moe``, ``hybrid_gqa``, ``resume``, ``async_resume``,
+    ``dp``, ``dp2``, ``hybrid`` and the parity legs), each in a thread of
+    its own,
     CHILD_JOBS at a time, longest first: their checks are bit for bit or
     within a tolerance,
     and none is timed against a bound. ``async_parity`` is not among them:
@@ -3532,13 +3685,14 @@ def child_phases(sched_ref: dict, async_ref: dict, per_step: dict,
     walls and s/step include the others' share of the card and the host.
     Every phase runs to its end; then any failure raises.
     The line ``child_phases`` gives their wall and what this process
-    still holds on the card. -> ``hybrid``'s and ``hybrid_gqa``'s rank-0
-    device launches, by phase."""
+    still holds on the card. -> ``hybrid``'s, ``hybrid_gqa``'s and
+    ``hybrid_moe``'s rank-0 device launches, by phase."""
     from concurrent.futures import ThreadPoolExecutor
     torch.cuda.empty_cache()                # the children's room
     t0 = time.perf_counter()
     held = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
-    jobs = {"hybrid_gqa": phase_hybrid_gqa,
+    jobs = {"hybrid_moe": phase_hybrid_moe,
+            "hybrid_gqa": phase_hybrid_gqa,
             "resume": partial(phase_resume, sched_ref),
             "async_resume": partial(phase_async_resume, async_ref),
             "parity": partial(run_legs, dp_parity_legs()
@@ -3557,7 +3711,8 @@ def child_phases(sched_ref: dict, async_ref: dict, per_step: dict,
          seconds=time.perf_counter() - t0)
     if failures:
         raise SystemExit("\n".join(failures))
-    return {name: futures[name].result() for name in ("hybrid", "hybrid_gqa")}
+    return {name: futures[name].result()
+            for name in ("hybrid", "hybrid_gqa", "hybrid_moe")}
 
 
 def serve_phases():
@@ -3592,8 +3747,10 @@ def main():
         phase_build()
         for dtype in (torch.float32, torch.bfloat16):
             check_gqa_shapes(dtype)
+            check_moe_shapes(dtype)
         phase_hybrid(phase_train("transformer"))
-        return phase_hybrid_gqa()
+        phase_hybrid_gqa()
+        return phase_hybrid_moe()
     if sys.argv[1:2] == ["--analysis-only"]:
         phase_device()
         phase_build()
@@ -3647,6 +3804,8 @@ def main():
                             {m: train[m]["launches"][name] for m in MODELS},
                             hybrid_rank0=hybrid["hybrid"].get(name, 0),
                             hybrid_gqa_rank0=hybrid["hybrid_gqa"].get(name, 0),
+                            **{f"hybrid_moe_{mode}_rank0": n.get(name, 0)
+                               for mode, n in hybrid["hybrid_moe"].items()},
                             async_ps=async_launches.get(name, 0)),
                         "max_abs_err": r["max_abs"], "ms": r["kernel_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

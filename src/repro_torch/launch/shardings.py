@@ -24,12 +24,33 @@ slice the spec gives it (``local``):
     place of the full parameter. The layers it splits are an attention
     layer by its heads (``head_plan``; ``wq``, ``wk``, ``wv`` by columns,
     ``wo`` by rows; the decoder's self and cross attention and a whisper
-    encoder's) and a SwiGLU or GELU MLP by its ``d_ff`` (``wg``, ``wi`` by
-    columns, ``wo`` by rows). Every other parameter with ``model`` in its
-    spec (the embedding and head over the vocab, MoE, SSM and MLA weights,
-    an attention layer the plan keeps whole) is gathered over the model
-    ranks like a data slice, and the loss runs it whole on every model
-    rank (their gradients agree bit for bit, the rank keeps its slice).
+    encoder's), a SwiGLU or GELU MLP by its ``d_ff`` (``wg``, ``wi`` by
+    columns, ``wo`` by rows) and an MoE layer's experts and shared
+    experts (below). Every other parameter with ``model`` in its spec
+    (the embedding and head over the vocab, an MoE router, SSM and MLA
+    weights, an attention layer the plan keeps whole) is gathered over
+    the model ranks like a data slice, and the loss runs it whole on
+    every model rank (their gradients agree bit for bit, the rank keeps
+    its slice).
+
+What each layer kind computes on model rank c of M:
+
+  ============  ========================================================
+  attention     its heads by the head plan (below)
+  dense MLP     ``d_ff``/M columns of ``wg``/``wi``, rows of ``wo``
+  MoE experts   expert parallel where the spec puts ``model`` on the
+                expert dim (M divides E): experts ``[c·E/M, (c+1)·E/M)``
+                of ``wg``, ``wi``, ``wo`` (dim 0); otherwise, where it
+                puts it on ``moe_d_ff`` (M divides it), every expert's
+                ``moe_d_ff``/M slice (``wg``/``wi`` dim 2, ``wo`` dim 1)
+  shared        ``swg``/``swi`` columns and ``swo`` rows, width/M, as a
+  experts       dense SwiGLU
+  MoE router    whole (its softmax and top-k read every expert's logit)
+  ============  ========================================================
+
+Under either MoE mode the compute slice is the storage slice along
+``model`` (the reference's 4-D rule, ``rules.param_spec``); the model
+reads the mode off the shapes (``models.moe``).
 
 **The head plan** of an attention layer with H query and K KV heads over
 M model ranks (``head_plan``):
@@ -72,12 +93,15 @@ import torch
 
 from repro_torch.sharding import rules
 
-# parameters the model splits over ``model`` itself: (mixer or mlp kind,
-# leaf) -> the dim that holds the model slice
-_TP_DIM = {("attn", "wq"): 1, ("attn", "wk"): 1, ("attn", "wv"): 1,
-           ("attn", "wo"): 0, ("swiglu", "wg"): 1, ("swiglu", "wi"): 1,
-           ("swiglu", "wo"): 0, ("gelu2", "wi"): 1, ("gelu2", "wo"): 0}
-_ATTN = ("wq", "wk", "wv", "wo")
+# the groups of leaves the model splits over ``model`` itself: kind ->
+# the candidate {leaf: dim that holds the model slice}, the first whose
+# leaves all carry ``model`` there taken (an MoE layer's experts: expert
+# parallel, else within each expert)
+_GROUPS = {"attn": ({"wq": 1, "wk": 1, "wv": 1, "wo": 0},),
+           "swiglu": ({"wg": 1, "wi": 1, "wo": 0},),
+           "gelu2": ({"wi": 1, "wo": 0},),
+           "moe": ({"wg": 0, "wi": 0, "wo": 0}, {"wg": 2, "wi": 2, "wo": 1}),
+           "shared": ({"swg": 1, "swi": 1, "swo": 0},)}
 
 
 @dataclass(frozen=True)
@@ -127,12 +151,26 @@ def _stacks(module):
             yield prefix, layers
 
 
+def _group_dims(owner: str, kind: str, specs: dict) -> dict:
+    """{name: split dim} of the first candidate of ``_GROUPS[kind]`` for
+    the leaves of ``owner`` whose specs all carry ``model`` on their
+    dims, or {} (the group runs whole)."""
+    for cand in _GROUPS[kind]:
+        dims = {f"{owner}.{leaf}": k for leaf, k in cand.items()}
+        if all(len(specs[n]) > k and specs[n][k] == "model"
+               for n, k in dims.items()):
+            return dims
+    return {}
+
+
 def _split_plan(module, M: int, specs: dict) -> dict:
     """{parameter name: ``LeafSplit``} of the layers the model splits over
     M ranks (module doc): an attention layer (self or cross) by its head
-    plan, a dense MLP by ``d_ff`` where M divides it; a layer's group of
-    weights is split only where every one of them has ``model`` on its
-    split dim. Empty for a module without layer stacks."""
+    plan, a dense MLP by ``d_ff``, an MoE layer's experts (expert
+    parallel, else within each expert) and its shared experts; a layer's
+    group of weights is split only where every one of them has ``model``
+    on its split dim (so only where M divides that dim). Empty for a
+    module without layer stacks."""
     out = {}
     stacks = list(_stacks(module))
     if M == 1 or not stacks:
@@ -147,18 +185,14 @@ def _split_plan(module, M: int, specs: dict) -> dict:
                 slots = ["mixer"] if layer.spec.mixer == "attn" else []
                 if layer.spec.cross:
                     slots.append("cross")
-                groups += [(slot, "attn", _ATTN) for slot in slots]
-            if layer.spec.mlp in ("swiglu", "gelu2") and cfg.d_ff % M == 0:
-                groups.append(("mlp", layer.spec.mlp,
-                               ("wg", "wi", "wo") if layer.spec.mlp == "swiglu"
-                               else ("wi", "wo")))
-            for slot, kind, leaves in groups:
-                dims = {f"{prefix}.{i}.{slot}.{leaf}": _TP_DIM[(kind, leaf)]
-                        for leaf in leaves}
-                if not all(len(specs[n]) > k and specs[n][k] == "model"
-                           for n, k in dims.items()):
-                    continue
-                for n, k in dims.items():
+                groups += [(slot, "attn") for slot in slots]
+            if layer.spec.mlp in ("swiglu", "gelu2", "moe"):
+                groups.append(("mlp", layer.spec.mlp))
+            if layer.spec.mlp == "moe" and cfg.num_shared_experts:
+                groups.append(("mlp", "shared"))
+            for slot, kind in groups:
+                for n, k in _group_dims(f"{prefix}.{i}.{slot}", kind,
+                                        specs).items():
                     if kind != "attn" or plan.kind == "heads":
                         out[n] = LeafSplit(k)
                     elif n.endswith((".wq", ".wo")):
@@ -395,7 +429,7 @@ def hybrid_params_placement(mesh, params, *, names=None, fsdp: bool = True):
     """Place ``params`` for the hybrid engine on ``mesh`` -> ``(local,
     placement)`` (module doc). ``params``: an ``nn.Module`` (its named
     parameters; a ``models.transformer.Transformer`` gets the model split
-    of its attention and dense MLP layers) or a list of tensors (``names``
+    of its attention, dense MLP and MoE layers) or a list of tensors (``names``
     default ``p0, p1, …``; never split by the model, only gathered). Every
     rank must pass the same values (the same seed). With no
     tensor-parallel axis every spec is ``()``: replicated. A head plan

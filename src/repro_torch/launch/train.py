@@ -47,8 +47,9 @@ evaluation. ``--engine hybrid`` (alias ``pjit``) trains on the ``(data,
 model)`` mesh of ``--model-parallel M`` (``(pod, data, model)`` across
 nodes), following the reference's ``run_sync``: with M = 1 it is the same
 data-parallel engine; with M > 1 the params are placed by
-``launch.shardings.hybrid_params_placement`` (attention by heads and the
-MLP by ``d_ff`` over ``model``, FSDP over ``data``), the activation rule
+``launch.shardings.hybrid_params_placement`` (attention by heads, the
+MLP by ``d_ff`` and an MoE layer by its experts or within each expert
+over ``model``, FSDP over ``data``), the activation rule
 table is installed (``sharding.rules``), each step takes the global batch
 (the ring in global row order) and each rank trains on its data rows with
 its model slices. Without process arguments it is one rank (a one-rank

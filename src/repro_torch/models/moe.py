@@ -11,6 +11,21 @@ here either; these are plain products under ``--kernels cuda`` too.
 
 Router load balancing is the Switch auxiliary loss: E · Σ_e (fraction of
 tokens whose top-1 expert is e) · (mean router probability of e).
+
+Under the hybrid engine's tensor-parallel split (``tp``, the placement of
+``launch.shardings``) a rank holds its E/M experts (expert parallel) or
+every expert's ``moe_d_ff``/M slice, and where they split its shared
+experts' width/M; ``moe_forward`` reads which off the weights' shapes.
+The router stays whole: its logits, the gates, the slots (the cumsum over
+all E), ``keep`` and the aux loss are the same bits on every rank, so
+capacity drops fall as without the split. Under expert parallel a rank
+builds its dispatch and combine tensors only for its own experts. Each
+rank's output is a partial sum, summed once a layer over the model ranks
+(``tp.reduce_out``). The experts' input and the gates pass through
+``tp.copy_in``, whose backward sums their gradients over the ranks: the
+gates' gradient holds only the rank's experts' (or ``d_ff`` slice's)
+share, and the router's gradient must be the whole one, the same bits on
+every rank, as the placement assumes of a leaf gathered over ``model``.
 """
 from __future__ import annotations
 
@@ -58,9 +73,12 @@ def _router(p, x, top_k: int):
     return probs, gates, expert_idx
 
 
-def _route_groups(p, x, top_k: int, num_experts: int, cf: float = 1.25):
+def _route_groups(p, x, top_k: int, num_experts: int, cf: float = 1.25,
+                  tp=None, xs=None):
     """x: (n, g, d), n token groups -> (y (n, g, d), aux (n,)): the JAX
-    ``_route_group`` of each group."""
+    ``_route_group`` of each group. ``tp``: the model split where the
+    experts are split (module doc); ``y`` is then the rank's partial sum.
+    ``xs``: the experts' input (x through ``tp.copy_in``; default x)."""
     n, g, d = x.shape
     E = num_experts
     C = _capacity(g, top_k, E, cf)
@@ -75,14 +93,22 @@ def _route_groups(p, x, top_k: int, num_experts: int, cf: float = 1.25):
     keep = pos < C
     gates = gates * keep                    # after the renormalisation
 
-    # dispatch / combine (n, g, E, C); a dropped slot selects column C, cut
-    eo = _one_hot(expert_idx, E, x.dtype)[..., None]             # (n,g,k,E,1)
+    # the rank's experts [e0, e0 + El): all E but under expert parallel
+    El, e0 = p["wg"].shape[0], 0
+    if tp is not None:
+        gates = tp.copy_in(gates)
+        if El < E:
+            e0 = tp.rank * El
+    xs = x if xs is None else xs
+
+    # dispatch / combine (n, g, El, C); a dropped slot selects column C, cut
+    eo = _one_hot(expert_idx - e0, El, x.dtype)[..., None]       # (n,g,k,El,1)
     slot = _one_hot(torch.where(keep, pos, C), C + 1, x.dtype)[..., :C]
     slot = slot[:, :, :, None, :]                                # (n,g,k,1,C)
     disp = (eo * slot).sum(2)
     comb = (gates[..., None, None].to(x.dtype) * eo * slot).sum(2)
 
-    xe = torch.einsum("ngec,ngd->necd", disp, x)                 # (n, E, C, d)
+    xe = torch.einsum("ngec,ngd->necd", disp, xs)                # (n, El, C, d)
     h = F.silu(torch.einsum("necd,edf->necf", xe, p["wg"]))
     h = h * torch.einsum("necd,edf->necf", xe, p["wi"])
     ye = torch.einsum("necf,efd->necd", h, p["wo"])
@@ -94,18 +120,36 @@ def _route_groups(p, x, top_k: int, num_experts: int, cf: float = 1.25):
     return y, aux
 
 
-def moe_forward(p, cfg, x):
+def _shared(p, x):
+    """The shared experts: a dense SwiGLU (or the rank's slice of it)."""
+    return (F.silu(x @ p["swg"]) * (x @ p["swi"])) @ p["swo"]
+
+
+def moe_forward(p, cfg, x, tp=None):
     """x: (B, S, d) -> (y, aux): the row-major tokens in groups of
-    g = min(GROUP_SIZE, S); aux is the mean over groups."""
+    g = min(GROUP_SIZE, S); aux is the mean over groups. ``tp``: the
+    model split (module doc); the experts and the shared experts each run
+    split where their weights hold a slice, the split parts' partial sums
+    summed once over the model ranks, a whole part added after."""
     B, S, d = x.shape
     g = min(GROUP_SIZE, S)
-    y, aux = _route_groups(p, x.reshape(B * S // g, g, d), cfg.top_k,
-                           cfg.num_experts, cfg.moe_capacity_factor)
+    E, ff, ns = cfg.num_experts, cfg.moe_d_ff, cfg.num_shared_experts
+    split = tp is not None and (p["wg"].shape[0] < E or p["wg"].shape[2] < ff)
+    shared = tp is not None and ns and p["swg"].shape[1] < ff * ns
+    xs = tp.copy_in(x) if split or shared else x
+    y, aux = _route_groups(p, x.reshape(B * S // g, g, d), cfg.top_k, E,
+                           cfg.moe_capacity_factor, tp if split else None,
+                           xs.reshape(B * S // g, g, d))
     y = y.reshape(B, S, d)
-    if cfg.num_shared_experts:
-        h = F.silu(x @ p["swg"]) * (x @ p["swi"])
-        y = y + h @ p["swo"]
-    return y, aux.mean()
+    if not ns:
+        return (tp.reduce_out(y) if split else y), aux.mean()
+    s = _shared(p, xs if shared else x)
+    if split == shared:
+        y = y + s
+        return (tp.reduce_out(y) if split else y), aux.mean()
+    # one part split, the other whole: sum the split one, then add
+    part, whole = (y, s) if split else (s, y)
+    return tp.reduce_out(part) + whole, aux.mean()
 
 
 def moe_decode(p, cfg, x):
@@ -119,6 +163,5 @@ def moe_decode(p, cfg, x):
                            cfg.moe_capacity_factor)
     y = y.reshape(B, 1, d)
     if cfg.num_shared_experts:
-        h = F.silu(x @ p["swg"]) * (x @ p["swi"])
-        y = y + h @ p["swo"]
+        y = y + _shared(p, x)
     return y, aux[0]

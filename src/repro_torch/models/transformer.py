@@ -34,7 +34,8 @@ Under the hybrid engine's tensor-parallel split
 (``repro_torch.distributed.data_parallel``) an attention layer (self or
 cross, decoder or whisper encoder) holds its rank's heads
 (``wq``/``wk``/``wv`` by columns, ``wo`` by rows; the head plan of
-``launch.shardings``) and a SwiGLU or GELU MLP its rank's ``d_ff`` slice;
+``launch.shardings``), a SwiGLU or GELU MLP its rank's ``d_ff`` slice and
+an MoE layer its rank's experts or slice of every expert (``models.moe``);
 the layers read the local widths off the weights and the split
 (``sharding.current_tp()``, read once a forward and handed down, so a
 recomputed layer sees it too) adds the row-parallel partial sums over the
@@ -277,11 +278,14 @@ def init_params(model: Transformer, seed: int = 0,
 # ---------------------------------------------------------------------------
 def _apply_mlp(layer: Layer, cfg, h, decode: bool = False, tp=None):
     """-> (y, aux); aux is 0.0 but for an MoE layer (``moe_decode`` for
-    one decode token a row). A dense MLP holding a ``d_ff`` slice runs
-    tensor-parallel over ``tp`` (module doc)."""
+    one decode token a row). A dense MLP holding a ``d_ff`` slice, or an
+    MoE layer holding its experts or slices of them, runs tensor-parallel
+    over ``tp`` (module doc)."""
     kind = layer.spec.mlp
     if kind == "moe":
-        return (M.moe_decode if decode else M.moe_forward)(layer.mlp, cfg, h)
+        if decode:
+            return M.moe_decode(layer.mlp, cfg, h)
+        return M.moe_forward(layer.mlp, cfg, h, tp)
     split = tp is not None and layer.mlp["wi"].shape[1] < cfg.d_ff
     if split:
         h = tp.copy_in(h)

@@ -564,11 +564,12 @@ def pod_mesh_rank(rank, world):
             local_data_block(mesh), g.rank(), g.size(), mesh.mesh.tolist())
 
 
-def tp_fused_rank(rank, world, model, steps, k):
-    """The wide tiny transformer (f32, plain paths) on the ``(world/model,
-    model)`` mesh: the per-step hybrid engine on global batches against
-    the fused one over the ring in global row order -> (per-step log,
-    fused log, per-step whole params, fused whole params)."""
+def tp_fused_rank(rank, world, model, steps, k, kind=None):
+    """The wide tiny transformer, or ``tp_moe_config(kind)`` (f32, plain
+    paths) on the ``(world/model, model)`` mesh: the per-step hybrid
+    engine on global batches against the fused one over the ring in
+    global row order -> (per-step log, fused log, per-step whole params,
+    fused whole params)."""
     from repro_torch.data import DeviceRing
     from repro_torch.distributed import (make_chunked_hybrid_step,
                                          make_hybrid_step)
@@ -576,7 +577,7 @@ def tp_fused_rank(rank, world, model, steps, k):
     from repro_torch.launch.shardings import hybrid_params_placement
     from repro_torch.models import build_model
     from repro_torch.train.trainer import host_metrics
-    cfg = tiny_tp_config(True)
+    cfg = tiny_tp_config(True) if kind is None else tp_moe_config(kind)
     mesh = make_host_mesh(model=model, device="cpu")
     sampler = FCPRSampler(make_lm_tokens(0, 16, 32, cfg.vocab_size),
                           batch_size=4, seed=1)
@@ -731,3 +732,100 @@ def axis_sum_rank(rank, world, seed):
             assert got.dtype == dtype and got.shape == xs[rank].shape
             out.append(([_np(x) for x in xs], _np(got)))
     return out
+
+
+TP_MOE = {"ep": dict(num_experts=4, moe_capacity_factor=1.25),
+          "within": dict(num_experts=6, moe_capacity_factor=1.25),
+          "shared": dict(num_experts=4, num_shared_experts=1)}
+
+
+def tp_moe_config(kind: str):
+    """The configs of ``tests/test_torch_tp_moe.py``: ``paper-moe-tiny``
+    (two MoE layers, top-2, ``moe_d_ff`` 128) widened to d 128, four
+    heads of 32, with ``TP_MOE[kind]``: E 4 at the reference's capacity
+    factor 1.25 (``ep``), E 6 at 1.25 (``within``: M = 4 does not divide
+    it), E 4 and one shared expert without drops (``shared``)."""
+    import dataclasses
+
+    from repro_torch.configs import zoo_config
+    return dataclasses.replace(zoo_config("moe", "tiny"), d_model=128,
+                               head_dim=32, **TP_MOE[kind])
+
+
+def _first_evaluation(m, strat, pl, batch):
+    """One loss-and-gradient of the split model on this rank's rows of
+    ``batch`` -> ({router name: its gradient}, [each MoE layer's top-k
+    expert indices]), the router's logits recorded in the forward only
+    (``models.moe._router``)."""
+    from repro_torch.models import moe as M
+    from repro_torch.sharding import tensor_parallel
+    router, seen = M._router, []
+
+    def recording(p, x, k):
+        out = router(p, x, k)
+        seen.append(_np(out[2]))
+        return out
+
+    pl.gather_()
+    M._router = recording
+    try:
+        with tensor_parallel(strat.tp):
+            total, _ = m.loss_fn(strat.reduce_ctx.rows(batch))
+    finally:
+        M._router = router
+    leaves = [lf for lf in pl.leaves if lf.name.endswith(".router")]
+    grads = torch.autograd.grad(total, [lf.compute for lf in leaves])
+    return {lf.name: _np(g) for lf, g in zip(leaves, grads)}, seen
+
+
+def tp_moe_rank(rank, world, state_dict_path, kind, model, steps, lr):
+    """``tp_moe_config(kind)`` (f32, plain paths) through the hybrid
+    engine on the ``(world/model, model)`` mesh from the params in
+    ``state_dict_path`` -> (losses, limits, accelerated, the whole final
+    state dict, {MoE leaf name: (compute shape, local shape, split dim)},
+    the bytes the model-axis exchanges moved, whether the whole params and
+    velocity come back to the same local shards through ``load_full`` and
+    ``load_full_tree``, the rank's (data, model) coordinates and rows of
+    the batch, and the step-1 evaluation's router gradients and top-k
+    indices (``_first_evaluation``, before the first step))."""
+    from repro_torch.distributed import make_hybrid_step
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.shardings import _coords, hybrid_params_placement
+    from repro_torch.models import build_model
+    cfg = tp_moe_config(kind)
+    m = build_model(cfg, kernels="reference", param_dtype=torch.float32,
+                    device="cpu")
+    m.init(0, max_seq=32)
+    with np.load(state_dict_path) as f:
+        m.module.load_state_dict({k: torch.from_numpy(f[k]) for k in f.files})
+    names = [n for n, _ in m.module.named_parameters()]
+    mesh = make_host_mesh(model=model, device="cpu")
+    local, pl = hybrid_params_placement(mesh, m.module)
+    icfg = ISGDConfig(n_batches=4, k_sigma=1.0, stop=2)
+    init, step = make_hybrid_step(m.loss_fn, momentum(0.9), icfg, mesh,
+                                  lr_fn=constant_lr(lr))
+    batches = [{k: torch.from_numpy(v) for k, v in b.items()}
+               for b in tp_attention_batches(cfg, steps)]
+    first = _first_evaluation(m, init.strategy, pl, batches[0])
+    rows = init.strategy.reduce_ctx.rows.rows(4)
+    state = init(local)
+    losses, limits, accel = [], [], []
+    for batch in batches:
+        state, local, met = step(state, local, batch)
+        losses.append(float(met["loss"]))
+        limits.append(float(met["limit"]))
+        accel.append(bool(met["accelerated"]))
+    full = dict(zip(names, (_np(t) for t in pl.full())))
+    split = {lf.name: (tuple(lf.compute.shape), tuple(lf.local.shape),
+                       lf.tp_dim)
+             for lf in pl.leaves if ".mlp." in lf.name}
+    back = [torch.full_like(t, float("nan")) for t in local]
+    pl.load_full(pl.full(), back)
+    base = [torch.full_like(t, float("nan")) for t in state.base]
+    pl.load_full_tree(pl.full_tree(state.base), base)
+    restored = all(torch.equal(a, b) for a, b in zip(back + base,
+                                                     local + state.base))
+    c = _coords(mesh)
+    return (losses, limits, accel, full, split, init.strategy.tp.moved,
+            restored, (c.get("data", 0), c["model"]),
+            (rows.start, rows.stop), first)

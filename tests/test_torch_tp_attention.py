@@ -33,8 +33,9 @@ its storage slice, and every exchange stays inside the KV group.
     the encoder's and the cross attention's) against JAX's VJP of the
     reference's ``_attend_chunked``, within 2e-5 of max|ref|, at chunk 16;
   * (e) the ``train_4k`` dry-run count on the meta device
-    (``launch.dryrun``) for ``deepseek_coder_33b`` and ``whisper_medium``
-    at 256 and 512 ranks through the two-point extrapolation over 1 and 2
+    (``launch.dryrun``) for ``deepseek_coder_33b``, ``whisper_medium``
+    and ``deepseek_v2_lite_16b`` (its experts split, ``models.moe``; MLA
+    whole) at 256 and 512 ranks through the two-point extrapolation over 1 and 2
     blocks (each block adds its parameters, gathered tensors, gradients,
     buckets and checkpoint, and an enc-dec model's encoder layer, so the
     memory sum grows by the same amount a block; ``PERF.md`` sets it
@@ -399,7 +400,8 @@ def fake_world():
         dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("arch", ["deepseek_coder_33b", "whisper_medium"])
+@pytest.mark.parametrize("arch", ["deepseek_coder_33b", "whisper_medium",
+                                  "deepseek_v2_lite_16b"])
 @pytest.mark.parametrize("multi_pod", [False, True], ids=["256", "512"])
 def test_train_4k_fits_the_card_on_the_production_meshes(arch, multi_pod,
                                                          fake_world):
